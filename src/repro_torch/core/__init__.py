@@ -1,0 +1,4 @@
+"""CPQ-aware path indexing (CPQx) on a torch device: the capacity-padded
+relational substrate, Algorithm 1's k-path-bisimulation, Algorithm 2's
+index assembly, the host-side planner and optimizer, and the plan walker
+under the overflow ladder."""

@@ -1,0 +1,306 @@
+"""Execution backend — the physical algebra behind the CPQx engine.
+
+The planner (``core.query`` / ``core.optimizer``) compiles a CPQ to a
+physical plan; this module executes it on the device:
+
+  * :class:`PlanOps` — the operator protocol (lookup / materialize /
+    conjoin / join / identity over capacity-padded relations) with the
+    single-device math as default implementations;
+  * :class:`LocalOps` — the protocol bound to one device's
+    ``DeviceIndexArrays``;
+  * :func:`run_plan_ops` — the plan walker, written once against it;
+  * :class:`LocalBackend` — the host-facing contract the engine drives
+    (numpy in, numpy-or-overflow out).
+
+Every relation in the walker carries a leading *lane* dimension, one
+lane per query of a same-shape batch (a single query is one lane):
+columns (B, cap), counts and overflow flags (B,).  The index arrays are
+1-D and shared by every lane.  Counts and flags stay on the device; the
+host reads a flag only when it harvests a result.
+
+Evaluation is two-stage exactly as in the paper:
+  * class space: LOOKUP returns sorted class-id lists; CONJUNCTION is a
+    sorted intersection of class ids (Prop. 4.1, the ``sorted_intersect``
+    kernel); IDENTITY is a gather of the cycle-purity flag;
+  * pair space: after any JOIN the evaluator materializes s-t pairs
+    (expansion through I_c2p, the ``expand_join`` kernel) and proceeds
+    with sorted set algebra.
+
+The overflow-ladder contract: every relation is capacity-padded, and any
+operator that would drop rows sets a *sticky* overflow flag that
+propagates to the plan's final result instead of raising.  The host
+driver (``core.engine``) is the only party that reacts: it re-runs the
+plan with every capacity doubled, and after three doublings jumps to at
+least the worst-case ``default_caps``.  Each lane keeps its own flag, so
+a batch retries only the lanes that tripped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import relational as R
+from .index import DeviceIndexArrays
+from .paths import _recap
+from ..kernels import ops as kops
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryCaps:
+    """Static capacities of one plan execution."""
+
+    class_cap: int  # class-id sets
+    pair_cap: int  # materialized pair sets
+    join_cap: int  # expansion-join outputs (pre-dedup)
+
+    def doubled(self) -> "QueryCaps":
+        return QueryCaps(self.class_cap * 2, self.pair_cap * 2, self.join_cap * 2)
+
+
+def default_caps(index) -> QueryCaps:
+    n_pairs = max(16, int(index.arrays.pair_count))
+    n_cls = max(16, int(index.arrays.n_classes))
+    p2 = 1 << (n_pairs - 1).bit_length()
+    c2 = 1 << (n_cls - 1).bit_length()
+    return QueryCaps(class_cap=c2, pair_cap=p2, join_cap=2 * p2)
+
+
+def _join_pairs(a: R.Relation, b: R.Relation, join_cap: int, pair_cap: int) -> R.Relation:
+    """(v,u) ⋈ (x,y) on u == x -> distinct (v, y).  b sorted by (x, y).
+    Plain torch expansion join, not the ``expand_join`` kernel, as in the
+    reference."""
+    out = R.expansion_join(a, b, a_on=[1], out_cols=[("a", 0), ("b", 1)],
+                           out_capacity=join_cap)
+    out = R.rel_unique(R.rel_sort(out, num_keys=2), 2)
+    return _recap(out, pair_cap)
+
+
+# ---------------------------------------------------------------------- #
+# the operator protocol
+# ---------------------------------------------------------------------- #
+
+
+class PlanOps:
+    """Device-side operator set a plan executes against.
+
+    Subclasses bind the index arrays as attributes before the walker runs:
+
+    ``l2c_cls``       (l2c_cap,) class ids, ascending within a seq block
+    ``class_starts``  (class_cap + 1,) CSR offsets into the c2p arrays
+    ``c2p_v, c2p_u``  the I_c2p pair columns the offsets index
+    ``class_cyclic``  (class_cap,) 0/1 cycle-purity flags
+    ``n_vertices``    vertex count (IDENTITY)
+    """
+
+    l2c_cls: torch.Tensor
+    class_starts: torch.Tensor
+    c2p_v: torch.Tensor
+    c2p_u: torch.Tensor
+    class_cyclic: torch.Tensor
+    n_vertices: int
+
+    # ---- class space ---- #
+
+    def lookup_classes(self, start, length, cap: int) -> R.Relation:
+        """``start``/``length`` (B,) -> (B, cap) class-id lists."""
+        idx = torch.arange(cap, dtype=R.I32, device=start.device)
+        valid = idx < length.unsqueeze(-1)
+        src = (start.unsqueeze(-1) + idx).clamp(0, self.l2c_cls.shape[0] - 1)
+        ids = torch.where(valid, self.l2c_cls[src.long()], R.SENTINEL)
+        return R.Relation((ids,), torch.clamp(length, max=cap).to(R.I32),
+                          length > cap)
+
+    def conj_classes(self, a: R.Relation, b: R.Relation) -> R.Relation:
+        """Prop. 4.1 on device: the sorted-intersect kernel."""
+        mask = kops.sorted_member_mask(b.cols[0], b.count, a.cols[0])
+        out = R.rel_compact(a, mask > 0)
+        # an undersized RIGHT list means missing matches: sticky
+        return R.Relation(out.cols, out.count, out.overflow | b.overflow)
+
+    def conj_id_classes(self, classes: R.Relation) -> R.Relation:
+        cid = classes.cols[0].clamp(0, self.class_cyclic.shape[0] - 1)
+        keep = (self.class_cyclic[cid.long()] == 1) & R.valid_mask(classes)
+        return R.rel_compact(classes, keep)
+
+    # ---- pair space ---- #
+
+    def materialize(self, classes: R.Relation, pair_cap: int) -> R.Relation:
+        """classes -> sorted distinct (v, u).  Classes are disjoint, so the
+        expansion introduces no duplicate pairs.  The gather pass is the
+        ``expand_join`` kernel."""
+        cid = classes.cols[0].clamp(0, self.class_starts.shape[0] - 2).long()
+        lo = self.class_starts[cid]
+        cnt = self.class_starts[cid + 1] - lo
+        cnt = torch.where(R.valid_mask(classes), cnt, 0)
+        ends = torch.cumsum(cnt, -1, dtype=R.I32)
+        total = ends[..., -1]
+        v, u, _ = kops.expand_join_gather(
+            ends, lo, classes.cols[0], self.c2p_v, self.c2p_u, total, pair_cap
+        )
+        rel = R.Relation((v, u), torch.clamp(total, max=pair_cap).to(R.I32),
+                         classes.overflow | (total > pair_cap))
+        return R.rel_sort(rel, num_keys=2)
+
+    def join_pairs(self, a: R.Relation, b: R.Relation, join_cap: int,
+                   pair_cap: int) -> R.Relation:
+        return _join_pairs(a, b, join_cap, pair_cap)
+
+    def conj_pairs(self, a: R.Relation, b: R.Relation) -> R.Relation:
+        return R.rel_intersect(a, b, 2)
+
+    def conj_id_pairs(self, pairs: R.Relation) -> R.Relation:
+        return R.rel_compact(pairs, pairs.cols[0] == pairs.cols[1])
+
+    def identity_pairs(self, pair_cap: int, lanes: int) -> R.Relation:
+        dev = self.class_starts.device
+        v = torch.arange(pair_cap, dtype=R.I32, device=dev)
+        col = torch.where(v < self.n_vertices, v, R.SENTINEL).expand(lanes, -1)
+        return R.Relation(
+            (col, col),
+            torch.full((lanes,), min(self.n_vertices, pair_cap), dtype=R.I32,
+                       device=dev),
+            torch.full((lanes,), self.n_vertices > pair_cap, device=dev))
+
+    # ---- epilogue ---- #
+
+    def finish(self, pairs: R.Relation):
+        """Final (relation, overflow) of a plan."""
+        return pairs, pairs.overflow
+
+
+class LocalOps(PlanOps):
+    """The operator protocol bound to one device's index arrays."""
+
+    def __init__(self, a: DeviceIndexArrays, n_vertices: int):
+        self.l2c_cls = a.l2c_cls
+        self.class_starts = a.class_starts
+        self.c2p_v = a.c2p_v
+        self.c2p_u = a.c2p_u
+        self.class_cyclic = a.class_cyclic
+        self.n_vertices = n_vertices
+
+
+# ---------------------------------------------------------------------- #
+# plan walker — written once against the protocol
+# ---------------------------------------------------------------------- #
+
+
+def run_plan_ops(ops: PlanOps, plan, caps: QueryCaps,
+                 lookup_ranges: torch.Tensor):
+    """Execute a physical plan against a :class:`PlanOps` operator set.
+
+    ``lookup_ranges``: (B, n_lookups, 2) int32 device tensor of (start,
+    len) per LOOKUP segment, in plan order, one row block per lane.
+    Returns ``ops.finish`` of the final pair Relation (sorted distinct
+    (v, u), columns (B, pair_cap)) and the (B,) sticky overflow flags.
+
+    ``plan`` may be a frozen plan or its :func:`~repro_torch.core.query.
+    plan_shape` — the device work depends only on the shape."""
+    lanes = lookup_ranges.shape[0]
+    counter = [0]
+
+    def next_range():
+        i = counter[0]
+        counter[0] += 1
+        return lookup_ranges[:, i, 0], lookup_ranges[:, i, 1]
+
+    def as_pairs(res):
+        kind, rel = res
+        if kind == "classes":
+            return ops.materialize(rel, caps.pair_cap)
+        return rel
+
+    def ev(node):
+        kind = node[0]
+        if kind == "lookup":
+            nseg = node[1] if isinstance(node[1], int) else len(node[1])
+            start, length = next_range()
+            cur = ("classes", ops.lookup_classes(start, length, caps.class_cap))
+            for _ in range(nseg - 1):
+                start, length = next_range()
+                nxt = ops.lookup_classes(start, length, caps.class_cap)
+                cur = ("pairs", ops.join_pairs(as_pairs(cur),
+                                               ops.materialize(nxt, caps.pair_cap),
+                                               caps.join_cap, caps.pair_cap))
+            return cur
+        if kind == "identity":
+            return ("pairs", ops.identity_pairs(caps.pair_cap, lanes))
+        if kind == "conj_id":
+            res = ev(node[1])
+            if res[0] == "classes":
+                return ("classes", ops.conj_id_classes(res[1]))
+            return ("pairs", ops.conj_id_pairs(res[1]))
+        left = ev(node[1])
+        right = ev(node[2])
+        if kind == "conj":
+            if left[0] == "classes" and right[0] == "classes":
+                return ("classes", ops.conj_classes(left[1], right[1]))
+            return ("pairs", ops.conj_pairs(as_pairs(left), as_pairs(right)))
+        if kind == "join":
+            return ("pairs", ops.join_pairs(as_pairs(left), as_pairs(right),
+                                            caps.join_cap, caps.pair_cap))
+        raise ValueError(kind)
+
+    return ops.finish(as_pairs(ev(plan)))
+
+
+# ---------------------------------------------------------------------- #
+# host-facing backend
+# ---------------------------------------------------------------------- #
+
+
+class LocalBackend:
+    """Single-device execution over :class:`DeviceIndexArrays`.
+
+    ``run``/``run_batch`` report overflow instead of raising: the engine
+    owns the double-and-retry capacity ladder."""
+
+    supports_union = False  # the union executable is not ported yet
+
+    def __init__(self, arrays: DeviceIndexArrays, n_vertices: int):
+        self.ops = LocalOps(arrays, n_vertices)
+        self.device = arrays.pair_v.device
+
+    def _ranges(self, ranges: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(np.ascontiguousarray(ranges, np.int32))
+        if self.device.type == "cuda":
+            # a pageable copy would wait for the stream's earlier batches;
+            # a pinned one is enqueued behind them and returns at once
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
+
+    def run(self, shape, caps: QueryCaps, ranges: np.ndarray):
+        """One query.  ``ranges`` (n_lookups, 2) -> (rows | None, overflow):
+        sorted distinct (n, 2) int32 s-t pairs, or None when the sticky
+        overflow flag tripped (the caller retries with doubled caps)."""
+        rel, overflow = run_plan_ops(self.ops, shape, caps,
+                                     self._ranges(ranges)[None])
+        if bool(overflow[0]):
+            return None, True
+        return R.batch_to_numpy(rel)[0], False
+
+    def run_batch(self, shape, caps: QueryCaps, ranges: np.ndarray):
+        """Batch of same-shape queries.  ``ranges`` (batch, n_lookups, 2)
+        -> (list of rows-or-None per lane, (batch,) bool overflow)."""
+        return self.harvest_batch(self.run_batch_async(shape, caps, ranges))
+
+    def run_batch_async(self, shape, caps: QueryCaps, ranges: np.ndarray):
+        """Enqueue a batch on the device and return a handle at once; the
+        CUDA stream runs it while the caller plans the next batch."""
+        rel, overflow = run_plan_ops(self.ops, shape, caps,
+                                     self._ranges(ranges))
+        return ("lanes", rel, overflow)
+
+    def harvest_batch(self, handle):
+        """Block on a handle of :meth:`run_batch_async` and convert."""
+        _, rel, overflow = handle
+        overflow = overflow.cpu().numpy()
+        results: list = [None] * overflow.shape[0]
+        ok = np.nonzero(~overflow)[0]
+        if ok.size:
+            for lane, rows in zip(ok, R.batch_to_numpy(rel, lanes=ok)):
+                results[lane] = rows
+        return results, overflow

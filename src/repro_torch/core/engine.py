@@ -1,0 +1,299 @@
+"""Device query processing with CPQx — Algorithms 3 & 4.
+
+The host plans and the backend executes.  Planning is cost-based by
+default: ``core.optimizer.optimize_query`` reorders join chains, splits
+and conjunctions using the exact cardinalities of
+:class:`~repro_torch.core.stats.IndexStats` (pulled once per ``rebind``);
+``core.query.plan_query`` remains the stats-free syntactic fallback
+(``Engine(..., optimize=False)``).  The per-query *data* (the (start,
+len) ranges of each LOOKUP) streams to the device as one small tensor,
+so queries of one template share one plan shape and batch together.
+
+The physical algebra lives in ``core.backend``.  The :class:`Engine`
+here owns everything backend-independent: planning, the host-side
+capacity estimator, the overflow retry schedule (the capacity ladder is
+specified in the ``core.backend`` module docstring), and plan-shape
+batching.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .backend import LocalBackend, QueryCaps, default_caps
+from .index import CPQxIndex, resolve_device
+from .optimizer import estimate_plan, optimize_query
+from .query import CPQ, plan_query, plan_lookup_seqs, plan_shape
+from .stats import IndexStats
+
+
+MAX_RETRIES = 10  # ladder rungs before a query gives up (the reference's)
+
+
+def _pow2(n: int) -> int:
+    return 1 << (max(1, int(n)) - 1).bit_length()
+
+
+def _has_identity(shape) -> bool:
+    if shape[0] == "identity":
+        return True
+    return any(_has_identity(s) for s in shape[1:]
+               if isinstance(s, tuple))
+
+
+@dataclasses.dataclass
+class LadderTelemetry:
+    """Cumulative capacity-ladder counters of one engine (kept across
+    ``rebind`` — they track the engine's lifetime traffic).
+
+    ``queries``      — queries evaluated (batch lanes count individually);
+    ``dispatches``   — device dispatches, including every retry rung;
+    ``retry_rungs``  — ladder rungs climbed past the first attempt,
+                       summed per query/lane (0 when the estimate fit);
+    ``default_jumps``— escalations that hit the jump-to-default rung
+                       (attempt >= 3 — the expensive worst-case dispatch).
+    """
+
+    queries: int = 0
+    dispatches: int = 0
+    retry_rungs: int = 0
+    default_jumps: int = 0
+
+
+@dataclasses.dataclass
+class _Group:
+    """One dispatch unit of a batch: a same-shape bucket."""
+
+    shape: object
+    caps: QueryCaps
+    members: list
+    ranges: np.ndarray
+    handle: object = None
+
+
+@dataclasses.dataclass
+class BatchHandle:
+    """In-flight batch: returned by :meth:`Engine.dispatch_batch`, settled
+    by :meth:`Engine.harvest_batch`.  Between the two calls the device is
+    executing every group while the host is free to plan the next batch."""
+
+    results: list
+    groups: list
+
+
+class Engine:
+    """Query engine bound to a built index, on the index's device.
+
+    ``device`` states where the caller expects to run: the CUDA card when
+    it is None.  The engine never moves an index; it raises when the
+    index lies elsewhere, so a CPU run is always asked for by name.
+
+    ``optimize`` selects the planner: True (default) runs the cost-based
+    optimizer over the index statistics; False pins the syntactic
+    ``plan_query``.
+    """
+
+    def __init__(self, index: CPQxIndex, optimize: bool = True, device=None):
+        self.device = resolve_device(device)
+        self.optimize = optimize
+        self.telemetry = LadderTelemetry()
+        self.rebind(index)
+
+    def rebind(self, index: CPQxIndex) -> None:
+        """Swap in a new index in place: re-pulls the host-side statistics
+        view (optimizer + capacity estimator) and the default caps, and
+        rebuilds the backend."""
+        if index.device != self.device:
+            raise ValueError(
+                f"index lies on {index.device}, engine expects {self.device}; "
+                f"pass device='{index.device}' to run there")
+        self.index = index
+        self.stats = IndexStats.from_index(index)
+        self._class_sizes = self.stats.class_sizes
+        self._l2c_host = self.stats.l2c_cls
+        self._default_caps = default_caps(index)  # one device sync, here
+        self.backend = LocalBackend(index.arrays, index.n_vertices)
+
+    def plan(self, q: CPQ):
+        """Compile ``q`` to a physical plan: cost-optimized against the
+        index statistics by default, syntactic (``plan_query``) when the
+        engine was constructed with ``optimize=False``."""
+        if self.optimize:
+            return optimize_query(q, self.index.k, self.stats)
+        return plan_query(q, self.index.k)
+
+    def estimate_caps(self, ranges: np.ndarray, shape,
+                      plan=None) -> QueryCaps:
+        """Optimistic per-query capacities from the host index stats.
+
+        With a ``plan``, the cost model walks it and sizes the pair cap
+        to 2x the largest *estimated intermediate* (4x when the plan has
+        pair-space joins, whose outputs are estimates), and the join cap
+        to the plan's largest pre-dedup witness bound.  Without one,
+        2x the largest single-lookup materialization.  Either way the
+        class cap covers the largest LOOKUP's class list exactly, and the
+        sticky-overflow retry keeps undersized estimates exact."""
+        max_classes, max_pairs = 1, 1
+        for start, length in np.asarray(ranges, np.int64).reshape(-1, 2):
+            max_classes = max(max_classes, int(length))
+            if plan is None:  # the cost model supersedes the per-leaf sum
+                cls = self._l2c_host[start: start + length]
+                max_pairs = max(max_pairs, int(self._class_sizes[cls].sum()))
+        headroom = 2
+        max_join = 0
+        if plan is not None:
+            est = estimate_plan(plan, self.stats)
+            max_pairs = int(max(est.max_pairs, est.pairs))
+            headroom = 4 if est.max_join > 0 else 2
+            max_join = int(min(est.max_join, 4 * self._default_caps.join_cap))
+        floor = self.index.n_vertices if _has_identity(shape) else 0
+        # never *start* above the worst-case default (the retry ladder can
+        # still climb past it if a join genuinely needs more)
+        ceiling = max(self._default_caps.pair_cap, _pow2(floor))
+        pair_cap = min(_pow2(max(64, headroom * max_pairs, floor)), ceiling)
+        join_cap = max(2 * pair_cap, _pow2(max_join))
+        return QueryCaps(class_cap=_pow2(max(16, max_classes)),
+                         pair_cap=pair_cap, join_cap=join_cap)
+
+    def lookup_ranges(self, plan) -> np.ndarray:
+        """(n_lookups, 2) int32 (start, len) rows, in plan order — the
+        per-query data streamed to the device."""
+        seqs = plan_lookup_seqs(plan)
+        ranges = np.array(
+            [self.index.lookup_range(s) for s in seqs], np.int32
+        ).reshape(-1, 2)
+        ranges[:, 1] = ranges[:, 1] - ranges[:, 0]  # (start, len)
+        return ranges
+
+    def execute(self, q: CPQ, caps: QueryCaps | None = None) -> np.ndarray:
+        """Evaluate ⟦q⟧_G; returns (n, 2) numpy array of s-t pairs."""
+        plan = self.plan(q)
+        ranges = self.lookup_ranges(plan)
+        shape = plan_shape(plan)
+        caps = caps or self.estimate_caps(ranges, shape,
+                                          plan if self.optimize else None)
+        self.telemetry.queries += 1
+        for attempt in range(MAX_RETRIES):
+            self.telemetry.dispatches += 1
+            rows, overflow = self.backend.run(shape, caps, ranges)
+            if not overflow:
+                return rows
+            self.telemetry.retry_rungs += 1
+            caps = self._escalate(caps, attempt)
+            if attempt >= 3:
+                self.telemetry.default_jumps += 1
+        raise RuntimeError("query overflow not resolved after retries")
+
+    def _escalate(self, caps: QueryCaps, attempt: int) -> QueryCaps:
+        """Overflow-retry schedule: double, and after three failed
+        attempts from a (possibly far-too-tight) estimate jump to at least
+        the worst-case default so the ladder cannot exhaust below the caps
+        a stats-free engine would have started from."""
+        caps = caps.doubled()
+        if attempt >= 3:
+            d = self._default_caps
+            caps = QueryCaps(max(caps.class_cap, d.class_cap),
+                             max(caps.pair_cap, d.pair_cap),
+                             max(caps.join_cap, d.join_cap))
+        return caps
+
+    def execute_batch(self, queries, caps: QueryCaps | None = None,
+                      min_bucket: int = 4) -> list:
+        """Evaluate many queries; returns one (n, 2) array per query, in
+        input order.  Equivalent to ``dispatch_batch`` + ``harvest_batch``
+        back to back."""
+        return self.harvest_batch(
+            self.dispatch_batch(queries, caps=caps, min_bucket=min_bucket))
+
+    def dispatch_batch(self, queries, caps: QueryCaps | None = None,
+                       min_bucket: int = 4) -> BatchHandle:
+        """Plan, bucket and asynchronously dispatch a batch; returns a
+        :class:`BatchHandle` the caller settles with ``harvest_batch``.
+
+        Queries are grouped by (plan *shape*, estimated caps); buckets
+        smaller than ``min_bucket`` merge upward into the next-larger caps
+        rung.  Each group's lookup ranges stack into a (batch, n_lookups,
+        2) array evaluated in one dispatch, one lane per query."""
+        if not queries:
+            return BatchHandle(results=[], groups=[])
+        plans = [self.plan(q) for q in queries]
+        all_ranges = [self.lookup_ranges(p) for p in plans]
+
+        shape_groups: dict = {}
+        for i, p in enumerate(plans):
+            shape = plan_shape(p)
+            e = caps or self.estimate_caps(all_ranges[i], shape,
+                                           p if self.optimize else None)
+            shape_groups.setdefault(shape, {}).setdefault(e, []).append(i)
+
+        work: list = []  # (shape, caps, member indices)
+        for shape, by_caps in shape_groups.items():
+            if caps is not None:
+                work.extend((shape, c, m) for c, m in by_caps.items())
+                continue
+            buckets = sorted(
+                by_caps.items(),
+                key=lambda kv: (kv[0].pair_cap, kv[0].join_cap,
+                                kv[0].class_cap))
+            cur_caps, cur_members = None, []
+            for cb, mem in buckets:
+                if cur_caps is None:
+                    cur_caps, cur_members = cb, list(mem)
+                else:
+                    cur_caps = QueryCaps(
+                        max(cur_caps.class_cap, cb.class_cap),
+                        max(cur_caps.pair_cap, cb.pair_cap),
+                        max(cur_caps.join_cap, cb.join_cap))
+                    cur_members += mem
+                if len(cur_members) >= min_bucket:
+                    work.append((shape, cur_caps, cur_members))
+                    cur_caps, cur_members = None, []
+            if cur_caps is not None:
+                # undersized largest-caps tail: keep it separate rather
+                # than inflating an already-flushed smaller bucket
+                work.append((shape, cur_caps, cur_members))
+
+        groups = [_Group(shape, c, m, np.stack([all_ranges[i] for i in m]))
+                  for shape, c, m in work]
+        self.telemetry.queries += len(queries)
+        for g in groups:
+            self.telemetry.dispatches += 1
+            g.handle = self.backend.run_batch_async(g.shape, g.caps, g.ranges)
+        return BatchHandle(results=[None] * len(queries), groups=groups)
+
+    def harvest_batch(self, handle: BatchHandle) -> list:
+        """Block on a dispatched batch and drive the overflow ladder.
+
+        Overflow is tracked per lane: only the queries whose own sticky
+        flag tripped are retried (synchronously), at doubled capacities.
+        ``retry_rungs`` and ``default_jumps`` both count per lane."""
+        results = handle.results
+        for g in handle.groups:
+            pending = np.asarray(g.members, np.int64)
+            ranges = g.ranges
+            grp_caps = g.caps
+            rows, overflow = self.backend.harvest_batch(g.handle)
+            attempt = 0
+            while True:
+                for lane, r in enumerate(rows):
+                    if r is not None:
+                        results[pending[lane]] = r
+                if not overflow.any():
+                    break
+                # only the lanes whose own flag tripped climb a rung
+                self.telemetry.retry_rungs += int(overflow.sum())
+                if attempt >= 3:
+                    self.telemetry.default_jumps += int(overflow.sum())
+                grp_caps = self._escalate(grp_caps, attempt)
+                attempt += 1
+                if attempt >= MAX_RETRIES:
+                    raise RuntimeError(
+                        "query overflow not resolved after retries")
+                pending = pending[overflow]
+                ranges = ranges[overflow]
+                self.telemetry.dispatches += 1
+                rows, overflow = self.backend.run_batch(g.shape, grp_caps,
+                                                        ranges)
+        return results

@@ -1,0 +1,4 @@
+"""Hand-written CUDA kernels for Hopper (``csrc/``), their ctypes
+bindings, their plain PyTorch versions (``ref.py``) and the device
+dispatch the engine calls (``ops.py``): sorted_intersect (CONJUNCTION)
+and expand_join (I_c2p materialization)."""

@@ -1,0 +1,36 @@
+"""The engine's entry to the kernels: dispatch by the tensors' device.
+
+CUDA tensors always go to the hand-written CUDA kernel; a build or launch
+failure raises.  CPU tensors go to the plain PyTorch version in
+``ref.py``.  There is no other route: no size ceiling and no switch.
+
+Both take a leading lane dimension (one lane per query of a batch)."""
+
+from __future__ import annotations
+
+import torch
+
+from . import expand_join as _ej
+from . import ref
+from . import sorted_intersect as _si
+
+
+def sorted_member_mask(hay: torch.Tensor, hay_count: torch.Tensor,
+                       queries: torch.Tensor) -> torch.Tensor:
+    """(B, n_q) int32 0/1 membership of queries in sorted
+    ``hay[b, :hay_count[b]]``."""
+    if hay.is_cuda:
+        return _si.sorted_member_mask(hay.contiguous(), hay_count.contiguous(),
+                                      queries.contiguous())
+    return ref.sorted_member_mask(hay, hay_count, queries)
+
+
+def expand_join_gather(ends, lo, a_payload, b_v, b_u, total, out_capacity: int):
+    """CSR expansion gather: three (B, out_capacity) int32 tensors."""
+    if ends.is_cuda:
+        return _ej.expand_join_gather(
+            ends.contiguous(), lo.contiguous(), a_payload.contiguous(),
+            b_v.contiguous(), b_u.contiguous(), total.contiguous(),
+            out_capacity)
+    return ref.expand_join_gather(ends, lo, a_payload, b_v, b_u, total,
+                                  out_capacity)

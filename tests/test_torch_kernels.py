@@ -1,0 +1,114 @@
+"""The plain PyTorch versions of the port's two kernels
+(``repro_torch.kernels.ref``, what ``ops`` runs for CPU tensors) held bit
+for bit against the JAX package's ``kernels.ops`` (Pallas in interpret
+mode on the CPU), lane by lane, on the reference kernel tests' shapes.
+The CUDA kernels themselves are held against these plain versions on the
+card by ``chip_smoke.py``."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import expand_join, ops, sorted_intersect  # noqa: E402
+
+SENTINEL = 2**31 - 1
+
+
+def _member_case(rng, n_hay, n_q):
+    hay = np.sort(rng.choice(5 * n_hay, n_hay, replace=False)).astype(np.int32)
+    count = int(rng.integers(0, n_hay + 1))
+    queries = rng.integers(0, 5 * n_hay, n_q).astype(np.int32)
+    queries[rng.random(n_q) < 0.05] = SENTINEL
+    return hay, count, queries
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("n_hay", [1, 7, 128, 1000])
+@pytest.mark.parametrize("n_q", [1, 64, 1024, 1500])
+def test_sorted_member_mask(lanes, n_hay, n_q):
+    rng = np.random.default_rng(n_hay * 10_007 + n_q + lanes)
+    cases = [_member_case(rng, n_hay, n_q) for _ in range(lanes)]
+    hay = torch.from_numpy(np.stack([c[0] for c in cases]))
+    count = torch.tensor([c[1] for c in cases], dtype=torch.int32)
+    queries = torch.from_numpy(np.stack([c[2] for c in cases]))
+    got = ops.sorted_member_mask(hay, count, queries)
+    assert got.dtype == torch.int32 and got.shape == (lanes, n_q)
+    for b, (h, c, q) in enumerate(cases):
+        exp = np.asarray(jops.sorted_member_mask(jnp.asarray(h), c, jnp.asarray(q)))
+        np.testing.assert_array_equal(got[b].numpy(), exp)
+        np.testing.assert_array_equal(
+            got[b].numpy(), np.isin(q, h[:c]).astype(np.int32))
+
+
+def test_sentinel_queries_never_match():
+    hay = torch.tensor([[1, 5, 9, SENTINEL]], dtype=torch.int32)
+    q = torch.tensor([[5, SENTINEL, 9, SENTINEL]], dtype=torch.int32)
+    got = ops.sorted_member_mask(hay, torch.tensor([3], dtype=torch.int32), q)
+    np.testing.assert_array_equal(got.numpy(), [[1, 0, 1, 0]])
+
+
+def _join_case(rng, n_b_rows):
+    n_a = int(rng.integers(1, 40))
+    a = rng.integers(0, 6, (n_a, 2)).astype(np.int32)
+    lo = np.searchsorted(n_b_rows[:, 0], a[:, 1], "left").astype(np.int32)
+    hi = np.searchsorted(n_b_rows[:, 0], a[:, 1], "right").astype(np.int32)
+    ends = np.cumsum(hi - lo).astype(np.int32)
+    return ends, lo, a[:, 0].copy(), int(ends[-1])
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("seed", range(8))
+def test_expand_join_gather(lanes, seed):
+    """Random CSR joins against one shared, sorted build side."""
+    rng = np.random.default_rng(seed)
+    n_b = int(rng.integers(1, 40))
+    b = rng.integers(0, 6, (n_b, 2)).astype(np.int32)
+    b = b[np.lexsort((b[:, 1], b[:, 0]))]
+    cases = [_join_case(rng, b) for _ in range(lanes)]
+    n_a = max(len(c[0]) for c in cases)
+
+    def pad(x, fill):  # lanes share one probe width; padding adds no rows
+        return np.concatenate([x, np.full(n_a - len(x), fill, np.int32)])
+
+    ends = np.stack([pad(c[0], c[0][-1]) for c in cases])
+    lo = np.stack([pad(c[1], 0) for c in cases])
+    pay = np.stack([pad(c[2], 0) for c in cases])
+    total = np.array([c[3] for c in cases], np.int32)
+    cap = max(8, 1 << max(0, int(total.max()) - 1).bit_length())
+    got = ops.expand_join_gather(
+        torch.from_numpy(ends), torch.from_numpy(lo), torch.from_numpy(pay),
+        torch.from_numpy(b[:, 0].copy()), torch.from_numpy(b[:, 1].copy()),
+        torch.from_numpy(total), cap)
+    for lane in range(lanes):
+        exp = jops.expand_join_gather(
+            jnp.asarray(ends[lane]), jnp.asarray(lo[lane]), jnp.asarray(pay[lane]),
+            jnp.asarray(b[:, 0]), jnp.asarray(b[:, 1]), int(total[lane]), cap)
+        for g, e in zip(got, exp):
+            np.testing.assert_array_equal(g[lane].numpy(), np.asarray(e))
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """CPU tensors never reach a CUDA kernel, so no launch is counted."""
+    before = (sorted_intersect.launches, expand_join.launches)
+    hay = torch.tensor([[1, 3, 5]], dtype=torch.int32)
+    one = torch.tensor([3], dtype=torch.int32)
+    ops.sorted_member_mask(hay, one, hay)
+    ops.expand_join_gather(one[None], torch.zeros(1, 1, dtype=torch.int32),
+                           one[None], hay[0], hay[0], one, 4)
+    assert (sorted_intersect.launches, expand_join.launches) == before
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The CUDA bindings raise on a CPU tensor instead of computing."""
+    hay = torch.tensor([[1, 3, 5]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        sorted_intersect.sorted_member_mask(hay, torch.tensor([3], dtype=torch.int32), hay)
+    one = torch.tensor([1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        expand_join.expand_join_gather(one[None], one[None], one[None], one, one,
+                                       one, 4)
+
