@@ -4,21 +4,29 @@
 
 Phases, each printed on its own lines:
 
-1. device    — the card's name, and its name and power limit from nvidia-smi;
-2. build     — nvcc builds the CUDA kernels of src/repro_torch/kernels/csrc;
-3. parity    — each CUDA kernel against its plain PyTorch version on the card,
-               bit for bit: the CPU tests' shapes, SENTINEL and empty cases,
-               several lanes;
-4. index     — CPQx for gmark_citation(20_000, avg_degree=6, seed=3) at k=2 on
-               the card (and a small build held bit for bit against the CPU);
-5. queries   — the 12 templates with seeded labels through Engine.execute and
-               Engine.execute_batch (16 same-template queries a batch), every
-               answer checked against a scipy.sparse reference written here;
+1. device      — the card's name, and its name and power limit from nvidia-smi;
+2. build       — nvcc builds the CUDA kernels of src/repro_torch/kernels/csrc;
+3. parity      — each CUDA kernel against its plain PyTorch version on the
+                 card, bit for bit: the CPU tests' shapes, SENTINEL, -1,
+                 INT_MIN and empty cases, several lanes; small CPQx and iaCPQx
+                 builds (gmark_citation(500)) held bit for bit against the CPU;
+4. index       — CPQx for gmark_citation(20_000, avg_degree=6, seed=3) at k=2
+                 on the card;
+5. queries     — the 12 templates with seeded labels through Engine.execute and
+                 Engine.execute_batch (16 same-template queries a batch), every
+                 answer checked against a scipy.sparse reference written here;
+6. iacpqx      — iaCPQx of the same graph over six seeded 2-sequences, and the
+                 same queries through it;
+7. maintenance — the lazily maintained host mirror of CPQx: three rounds of
+                 100 mixed updates, each applied, flushed to the card and
+                 rebound, its answers checked, beside a full rebuild; then one
+                 interest round on an iaCPQx mirror;
    then the kernels again, on the built index's own arrays and on the inputs
-   the main path gave them, with their times.
+   the paths gave them, with their times.
 
-The launch counts are set to 0 just before phases 4-5 (the main path) and read
-just after.  The last two lines are the kernels' JSON record and
+Each path (phases 4-5, 6 and 7) is driven with the launch counts set to 0
+just before it and read just after; a path that never launched one of its
+kernels fails.  The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Any failure exits non-zero; without a CUDA
 card, or outside a checkout of the repository, the script exits non-zero
 before printing any result.
@@ -36,6 +44,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N_VERTICES = 20_000
+MAINT_VERTICES = 20_000  # the maintenance phase's graph (the host mirror's size)
+MAINT_ROUNDS = 3
+MAINT_OPS = 100
+N_INTERESTS = 6
 K = 2
 SEED = 3
 BATCH = 16
@@ -50,6 +62,8 @@ KERNELS = {
                            "src/repro/kernels/sorted_intersect.py:57"),
     "expand_join_gather": ("src/repro_torch/kernels/csrc/expand_join.cu",
                            "src/repro/kernels/expand_join.py:69"),
+    "fingerprint_rows": ("src/repro_torch/kernels/csrc/fingerprint.cu",
+                         "src/repro/kernels/fingerprint.py:53"),
 }
 
 
@@ -117,9 +131,10 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return total / iters / 1e3
 
 
-def busy_share(fn):
-    """(wall ms, device-busy ms, top-5 kernels by device time) of one
-    ``fn`` call, from a profiler trace."""
+def busy_share(fn, match: str = ""):
+    """(wall ms, device-busy ms, top-5 kernels by device time, device ms of
+    the kernels whose name contains ``match``) of one ``fn`` call, from a
+    profiler trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -134,7 +149,8 @@ def busy_share(fn):
     busy = sum(_device_us(e) for e in evts) / 1e3
     top = [(e.key[:40], round(_device_us(e) / 1e3, 4), e.count)
            for e in evts[:5] if _device_us(e) > 0]
-    return wall, busy, top
+    matched = sum(_device_us(e) for e in evts if match and match in e.key) / 1e3
+    return wall, busy, top, matched
 
 
 # ---------------------------------------------------------------------- #
@@ -159,19 +175,19 @@ class SparseReference:
             self.mats[lbl] = sp.csr_matrix((data, (g.src[m], g.dst[m])),
                                            shape=(n, n), dtype=bool)
 
-    def eval(self, q):
+    def eval(self, q, max_flops=MAX_REF_FLOPS):
         """The answer as a CSR matrix, or None when a product would cost
-        more than MAX_REF_FLOPS multiply-adds."""
+        more than ``max_flops`` multiply-adds (None: no limit)."""
         from repro_torch.core.query import Conj, Edge, Identity, Join
 
         if isinstance(q, Edge):
             return self.mats[q.label]
         if isinstance(q, Identity):
             return self.sp.identity(self.n, dtype=bool, format="csr")
-        a = self.eval(q.lhs)
+        a = self.eval(q.lhs, max_flops)
         if a is None:
             return None
-        b = self.eval(q.rhs)
+        b = self.eval(q.rhs, max_flops)
         if b is None:
             return None
         if isinstance(q, Conj):
@@ -179,7 +195,7 @@ class SparseReference:
         assert isinstance(q, Join)
         flops = int((np.diff(a.tocsc().indptr).astype(np.int64)
                      * np.diff(b.indptr).astype(np.int64)).sum())
-        if flops > MAX_REF_FLOPS:
+        if max_flops is not None and flops > max_flops:
             return None
         return (a @ b).astype(bool).tocsr()
 
@@ -191,6 +207,81 @@ class SparseReference:
         m.sort_indices()
         v = np.repeat(np.arange(m.shape[0]), np.diff(m.indptr))
         return np.stack([v, m.indices], axis=1).astype(np.int32)
+
+
+# ---------------------------------------------------------------------- #
+# workloads: template draws, interest sets, update batches
+# ---------------------------------------------------------------------- #
+
+
+def draw_queries(g, refm, per_template: int, seed: int):
+    """``per_template`` seeded draws of each template whose reference
+    answer is at most MAX_ANSWER pairs and costs at most MAX_REF_FLOPS.
+    Returns ({template: [(query, expected rows)]}, dropped draws)."""
+    from repro_torch.data.graphs import random_queries_for_graph
+
+    drops = []
+    out = {}
+    for name in TEMPLATES:
+        accepted = []
+        tries = 0
+        while len(accepted) < per_template and tries < 8 * per_template:
+            tries += 1
+            seed += 1
+            (_, q), = random_queries_for_graph(g, [name], 1, seed=seed)
+            m = refm.eval(q)
+            if m is None or m.nnz > MAX_ANSWER:
+                drops.append((name, repr(q), "flops" if m is None else m.nnz))
+                continue
+            accepted.append((q, refm.rows(m)))
+        if not accepted:
+            fail(f"template {name}: no draw with a reference answer "
+                 f"<= {MAX_ANSWER} pairs in {tries} draws")
+        out[name] = accepted
+    return out, drops
+
+
+def interests_for(g, n: int = N_INTERESTS, seed: int = 0) -> list:
+    """The interest set of the paper's iaCPQx runs: ``n`` 2-sequences drawn
+    from the labels present in ``g`` (the rule of the repository's query
+    benchmark)."""
+    rng = np.random.default_rng(seed)
+    present = np.unique(g.lbl)
+    return [tuple(int(x) for x in rng.choice(present, 2)) for _ in range(n)]
+
+
+def update_batch(g, rng, n_ops: int) -> list:
+    """A mixed batch of base-edge updates (the rule of the repository's
+    update benchmark): 50 % inserts, 30 % deletes of existing edges, 20 %
+    relabels."""
+    base = g._base_edges()
+    ops = []
+    for _ in range(n_ops):
+        roll = rng.random()
+        if roll < 0.5 or base.shape[0] == 0:
+            ops.append(("insert_edge", int(rng.integers(0, g.n_vertices)),
+                        int(rng.integers(0, g.n_vertices)),
+                        int(rng.integers(0, g.n_labels))))
+        elif roll < 0.8:
+            e = base[int(rng.integers(0, base.shape[0]))]
+            ops.append(("delete_edge", int(e[0]), int(e[1]), int(e[2])))
+        else:
+            e = base[int(rng.integers(0, base.shape[0]))]
+            ops.append(("change_label", int(e[0]), int(e[1]), int(e[2]),
+                        (int(e[2]) + 1) % g.n_labels))
+    return ops
+
+
+def check_answers(engine, g, queries, what: str) -> None:
+    """One ``execute`` per query, held to a scipy reference built on ``g``
+    now (no cost limit: the draws were cheap on the graph they came from)."""
+    refm = SparseReference(g)
+    for q in queries:
+        exp = refm.rows(refm.eval(q, max_flops=None))
+        got = engine.execute(q)
+        if not np.array_equal(got, exp):
+            fail(f"{what}: {q!r} answer ({len(got)} pairs) differs from the "
+                 f"reference ({len(exp)} pairs)")
 
 
 # ---------------------------------------------------------------------- #
@@ -245,6 +336,27 @@ def join_cases(rng, dev):
     return [tuple(torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32,
                                   device=dev) for x in c[:6]) + (c[6],)
             for c in out]
+
+
+def fingerprint_cases(rng, dev):
+    """(cols, salt) on the card: n in {1, 7, 2048, 4101, 2^22}, 1-5 columns,
+    three salts; -1 (sequence padding), SENTINEL and INT_MIN mixed in."""
+    import torch
+
+    out = []
+    for n in (1, 7, 2048, 4101, 1 << 22):
+        for k in (1, 2, 3, 5):
+            for salt in (0, 1, 77):
+                cols = []
+                for _ in range(k):
+                    c = rng.integers(-5, 1 << 20, n).astype(np.int32)
+                    roll = rng.random(n)
+                    c[roll < 0.05] = -1
+                    c[(roll >= 0.05) & (roll < 0.08)] = 2**31 - 1
+                    c[(roll >= 0.08) & (roll < 0.1)] = -(2**31)
+                    cols.append(torch.as_tensor(c, device=dev))
+                out.append((tuple(cols), salt))
+    return out
 
 
 def index_member_cases(index, dev, rng, lanes: int = 16):
@@ -336,11 +448,13 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this script needs a CUDA card", 2)
 
     from repro_torch.core import index as cindex
+    from repro_torch.core import interest
     from repro_torch.core.capacity import estimate_build_caps
     from repro_torch.core.engine import Engine
-    from repro_torch.data.graphs import gmark_citation, random_queries_for_graph
+    from repro_torch.core.maintenance import MaintainableIndex
+    from repro_torch.data.graphs import gmark_citation
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels import expand_join, ops, ref, sorted_intersect
+    from repro_torch.kernels import expand_join, fingerprint, ops, ref, sorted_intersect
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -370,6 +484,12 @@ def main() -> int:
 
     # ---- 3. kernel parity on the card -------------------------------- #
     rng = np.random.default_rng(SEED)
+    kernel_fns = {"sorted_member_mask": sorted_intersect.sorted_member_mask,
+                  "expand_join_gather": expand_join.expand_join_gather,
+                  "fingerprint_rows": fingerprint.fingerprint_rows}
+    plain_fns = {"sorted_member_mask": ref.sorted_member_mask,
+                 "expand_join_gather": ref.expand_join_gather,
+                 "fingerprint_rows": ref.fingerprint_rows}
     err = {
         "sorted_member_mask": check_parity(
             "sorted_member_mask", sorted_intersect.sorted_member_mask,
@@ -377,23 +497,39 @@ def main() -> int:
         "expand_join_gather": check_parity(
             "expand_join_gather", expand_join.expand_join_gather,
             ref.expand_join_gather, join_cases(rng, dev)),
+        "fingerprint_rows": check_parity(
+            "fingerprint_rows", fingerprint.fingerprint_rows,
+            ref.fingerprint_rows, fingerprint_cases(rng, dev)),
     }
-    say("[parity] test shapes, SENTINEL, empty and multi-lane cases: both "
-        "kernels equal their plain versions (tolerance 0: integer outputs, "
-        "bit-exact)")
+    say("[parity] test shapes, SENTINEL, -1, INT_MIN, empty and multi-lane "
+        "cases: all three kernels equal their plain versions (tolerance 0: "
+        "integer outputs, bit-exact)")
 
-    # small build on the card held bit for bit against the CPU build
+    # small builds on the card held bit for bit against the CPU builds
     g_small = gmark_citation(500, avg_degree=6, seed=SEED)
-    on_card = cindex.build(g_small, K)
-    on_cpu = cindex.build(g_small, K, device="cpu")
-    for f in on_card.arrays._fields:
-        if not torch.equal(getattr(on_card.arrays, f).cpu(), getattr(on_cpu.arrays, f)):
-            fail(f"small build: field {f} differs between card and CPU")
-    say("[index] gmark_citation(500) k=2: all 17 fields bit-identical card vs CPU")
+    small_ints = interests_for(g_small)
+    for what, make in (
+            ("CPQx", lambda d: cindex.build(g_small, K, device=d)),
+            ("iaCPQx", lambda d: interest.build_interest(g_small, K, small_ints,
+                                                         device=d))):
+        on_card, on_cpu = make(None), make("cpu")
+        for f in on_card.arrays._fields:
+            if not torch.equal(getattr(on_card.arrays, f).cpu(),
+                               getattr(on_cpu.arrays, f)):
+                fail(f"small {what} build: field {f} differs between card and CPU")
+        if on_card.seq_ranges != on_cpu.seq_ranges:
+            fail(f"small {what} build: seq_ranges differ between card and CPU")
+        say(f"[index] gmark_citation(500) k={K} {what}: all 17 fields "
+            "bit-identical card vs CPU")
 
-    # ---- main path: counts to 0, build, queries, counts read --------- #
-    recorded = {"sorted_member_mask": None, "expand_join_gather": None}
-    real_mask, real_gather = ops.sorted_member_mask, ops.expand_join_gather
+    # ---- the paths: spies record each kernel's largest input ---------- #
+    recorded = {name: None for name in KERNELS}
+    real = {"sorted_member_mask": ops.sorted_member_mask,
+            "expand_join_gather": ops.expand_join_gather,
+            "fingerprint_rows": ops.fingerprint_rows}
+    counters = {"sorted_member_mask": sorted_intersect,
+                "expand_join_gather": expand_join,
+                "fingerprint_rows": fingerprint}
 
     def record(name, args, work):
         best = recorded[name]
@@ -403,107 +539,224 @@ def main() -> int:
 
     def mask_spy(hay, hay_count, queries):
         record("sorted_member_mask", (hay, hay_count, queries), queries.numel())
-        return real_mask(hay, hay_count, queries)
+        return real["sorted_member_mask"](hay, hay_count, queries)
 
     def gather_spy(ends, lo, a_payload, b_v, b_u, total, out_capacity):
         record("expand_join_gather", (ends, lo, a_payload, b_v, b_u, total,
                                       out_capacity), ends.shape[0] * out_capacity)
-        return real_gather(ends, lo, a_payload, b_v, b_u, total, out_capacity)
+        return real["expand_join_gather"](ends, lo, a_payload, b_v, b_u, total,
+                                           out_capacity)
 
-    ops.sorted_member_mask, ops.expand_join_gather = mask_spy, gather_spy
-    sorted_intersect.launches = 0
-    expand_join.launches = 0
+    def fingerprint_spy(cols, salt=0):
+        cols = tuple(c.contiguous() for c in cols)
+        record("fingerprint_rows", (cols, salt), cols[0].numel() * len(cols))
+        return real["fingerprint_rows"](cols, salt)
 
-    # ---- 4. build at full size --------------------------------------- #
+    ops.sorted_member_mask, ops.expand_join_gather, ops.fingerprint_rows = (
+        mask_spy, gather_spy, fingerprint_spy)
+
+    def zero_counts():
+        for mod in counters.values():
+            mod.launches = 0
+
+    def read_counts(path, needed):
+        counts = {name: mod.launches for name, mod in counters.items()}
+        say(f"[{path}] kernel launches {counts}")
+        for name in needed:
+            if counts[name] == 0:
+                fail(f"the {path} path never launched {name}")
+        return counts
+
+    path_counts = {}
+
+    # ---- 4. build at full size (counts to 0 just before) ------------- #
+    zero_counts()
     g = gmark_citation(N_VERTICES, avg_degree=6, seed=SEED)
     t0 = time.perf_counter()
     caps = estimate_build_caps(g, K)
     t_caps = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     index = cindex.build(g, K, caps=caps)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - resident
+    fp_build = fingerprint.launches
     say(f"[index] gmark_citation({N_VERTICES}, avg_degree=6, seed={SEED}) k={K}: "
         f"{g.n_edges} edges with inverses, caps level_rows={caps.level_rows} "
         f"pair_cap={caps.pair_cap}")
     say(f"[index] host capacity estimate {t_caps:.2f} s; device build "
         f"{t_build:.3f} s; n_classes={index.n_classes}; |P<=2|={index.n_pairs}; "
-        f"size_entries={index.size_entries()}; peak device memory "
-        f"{peak / 2**30:.3f} GiB")
+        f"size_entries={index.size_entries()}; peak device memory of the "
+        f"build {peak / 2**30:.3f} GiB (above {resident / 2**30:.3f} GiB "
+        f"resident before it); fingerprint_rows launches {fp_build}")
+    if fp_build == 0:
+        fail("the CPQx build never launched fingerprint_rows")
 
     # ---- 5. queries -------------------------------------------------- #
     engine = Engine(index)
     refm = SparseReference(g)
-    drops = []
-    per_template = {}
-    draw_seed = SEED
-    for name in TEMPLATES:
-        accepted = []
-        tries = 0
-        while len(accepted) < BATCH and tries < 8 * BATCH:
-            tries += 1
-            draw_seed += 1
-            (_, q), = random_queries_for_graph(g, [name], 1, seed=draw_seed)
-            m = refm.eval(q)
-            if m is None or m.nnz > MAX_ANSWER:
-                drops.append((name, repr(q), "flops" if m is None else m.nnz))
-                continue
-            accepted.append((q, refm.rows(m)))
-        if not accepted:
-            fail(f"template {name}: no draw with a reference answer "
-                 f"<= {MAX_ANSWER} pairs in {tries} draws")
-        per_template[name] = accepted
+    per_template, drops = draw_queries(g, refm, BATCH, SEED)
     say(f"[queries] {sum(len(v) for v in per_template.values())} queries kept; "
         f"{len(drops)} draws dropped (reference answer > {MAX_ANSWER} pairs, "
         f"or a reference product > {MAX_REF_FLOPS} multiply-adds), e.g. "
         f"{drops[:3]}")
 
-    n_queries = 0
-    results = {}
-    for name, accepted in per_template.items():
-        lat = []
-        for q, exp in accepted:
-            t0 = time.perf_counter()
-            got = engine.execute(q)
-            lat.append(time.perf_counter() - t0)
-            n_queries += 1
-            if not np.array_equal(got, exp):
-                fail(f"{name} {q!r}: execute answer ({len(got)} pairs) differs "
-                     f"from the reference ({len(exp)} pairs)")
-        qs = [q for q, _ in accepted]
-        bt = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            batch = engine.execute_batch(qs)
-            bt.append(time.perf_counter() - t0)
-            n_queries += len(qs)
-            for (q, exp), got in zip(accepted, batch):
+    def run_templates(engine, what):
+        """execute once per draw and execute_batch three times per template,
+        every answer held to the reference; returns (per-template record,
+        query evaluations)."""
+        n_queries = 0
+        results = {}
+        for name, accepted in per_template.items():
+            lat = []
+            for q, exp in accepted:
+                t0 = time.perf_counter()
+                got = engine.execute(q)
+                lat.append(time.perf_counter() - t0)
+                n_queries += 1
                 if not np.array_equal(got, exp):
-                    fail(f"{name} {q!r}: execute_batch answer differs from "
-                         f"the reference")
-        results[name] = dict(
-            n=len(qs), execute_ms_median=1e3 * float(np.median(lat[1:] or lat)),
-            execute_ms_first=1e3 * lat[0],
-            batch_qps=len(qs) / float(np.median(bt[1:])),
-            max_answer=max(len(e) for _, e in accepted))
-    counts = {"sorted_member_mask": sorted_intersect.launches,
-              "expand_join_gather": expand_join.launches}
-    ops.sorted_member_mask, ops.expand_join_gather = real_mask, real_gather
-    for name, r in results.items():
-        say(f"[queries] {name:4s} n={r['n']:2d} execute median "
-            f"{r['execute_ms_median']:.3f} ms (first {r['execute_ms_first']:.1f} ms) "
-            f"batch {r['batch_qps']:.1f} q/s  largest answer {r['max_answer']}")
-    say(f"[queries] all answers equal the scipy.sparse reference; "
-        f"{n_queries} query evaluations; telemetry {engine.telemetry}")
-    say(f"[main path] kernel launches {counts} over {n_queries} queries")
-    for name, c in counts.items():
-        if c == 0:
-            fail(f"the main path never launched {name}")
+                    fail(f"{what} {name} {q!r}: execute answer ({len(got)} "
+                         f"pairs) differs from the reference ({len(exp)} pairs)")
+            qs = [q for q, _ in accepted]
+            bt = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                batch = engine.execute_batch(qs)
+                bt.append(time.perf_counter() - t0)
+                n_queries += len(qs)
+                for (q, exp), got in zip(accepted, batch):
+                    if not np.array_equal(got, exp):
+                        fail(f"{what} {name} {q!r}: execute_batch answer "
+                             f"differs from the reference")
+            results[name] = dict(
+                n=len(qs), execute_ms_median=1e3 * float(np.median(lat[1:] or lat)),
+                execute_ms_first=1e3 * lat[0],
+                batch_qps=len(qs) / float(np.median(bt[1:])),
+                max_answer=max(len(e) for _, e in accepted))
+        for name, r in results.items():
+            say(f"[{what}] {name:4s} n={r['n']:2d} execute median "
+                f"{r['execute_ms_median']:.3f} ms (first {r['execute_ms_first']:.1f} ms) "
+                f"batch {r['batch_qps']:.1f} q/s  largest answer {r['max_answer']}")
+        say(f"[{what}] all answers equal the scipy.sparse reference; "
+            f"{n_queries} query evaluations; telemetry {engine.telemetry}")
+        return results, n_queries
 
-    # ---- kernels on the index's arrays and on the main path's inputs -- #
+    run_templates(engine, "queries")
+    path_counts["cpqx"] = read_counts("main path (CPQx build + queries)", KERNELS)
+
+    # ---- 6. iaCPQx at full size (counts to 0 just before) ------------ #
+    zero_counts()
+    ints = interests_for(g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ia_resident = torch.cuda.memory_allocated()  # the CPQx index and engine
+    t0 = time.perf_counter()
+    ia_index = interest.build_interest(g, K, ints, caps=caps)
+    torch.cuda.synchronize()
+    t_ia = time.perf_counter() - t0
+    ia_peak = torch.cuda.max_memory_allocated() - ia_resident
+    say(f"[iacpqx] interests {ints} (+ every length-1 sequence)")
+    say(f"[iacpqx] device build {t_ia:.3f} s (host estimate shared with "
+        f"CPQx); n_classes={ia_index.n_classes} (CPQx {index.n_classes}); "
+        f"size_entries={ia_index.size_entries()} (CPQx {index.size_entries()}); "
+        f"peak device memory of the build {ia_peak / 2**30:.3f} GiB above "
+        f"{ia_resident / 2**30:.3f} GiB resident (CPQx {peak / 2**30:.3f})")
+    run_templates(Engine(ia_index), "iacpqx")
+    path_counts["iacpqx"] = read_counts("iaCPQx build + queries", KERNELS)
+
+    # ---- 7. lazy maintenance (counts to 0 just before) --------------- #
+    zero_counts()
+    maint_kernels = ("sorted_member_mask", "expand_join_gather")
+    g_m = g if MAINT_VERTICES == N_VERTICES else gmark_citation(
+        MAINT_VERTICES, avg_degree=6, seed=SEED)
+    probe, _ = draw_queries(g_m, SparseReference(g_m), 1, 10_000)
+    probes = [acc[0][0] for acc in probe.values()]  # one query per template
+    t0 = time.perf_counter()
+    mi = MaintainableIndex.build(g_m, K)
+    t_mirror = time.perf_counter() - t0
+    size0 = sum(mi.size_entries())
+    t0 = time.perf_counter()
+    flushed = mi.flush()
+    torch.cuda.synchronize()
+    t_flush = time.perf_counter() - t0
+    m_engine = Engine(flushed)
+    check_answers(m_engine, mi.g, probes, "maintenance (pristine flush)")
+    say(f"[maintenance] gmark_citation({MAINT_VERTICES}) k={K}: host mirror "
+        f"build {t_mirror:.2f} s; first flush {t_flush:.3f} s; "
+        f"n_classes={flushed.n_classes}; size_entries={mi.size_entries()}; "
+        f"caps {flushed.caps}")
+    urng = np.random.default_rng(7)
+    rebuild_fp = 0
+    for r in range(MAINT_ROUNDS):
+        batch = update_batch(mi.g, urng, MAINT_OPS)
+        t0 = time.perf_counter()
+        affected = mi.apply_updates(batch)
+        t_apply = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flushed = mi.flush()
+        torch.cuda.synchronize()
+        t_flush = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m_engine.rebind(flushed)
+        t_rebind = time.perf_counter() - t0
+        check_answers(m_engine, mi.g, probes, f"maintenance round {r}")
+        # the paper's alternative: a full rebuild of the updated graph
+        before = fingerprint.launches
+        t0 = time.perf_counter()
+        rcaps = estimate_build_caps(mi.g, K)
+        t_rcaps = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rebuilt = cindex.build(mi.g, K, caps=rcaps)
+        torch.cuda.synchronize()
+        t_rbuild = time.perf_counter() - t0
+        rebuild_fp += fingerprint.launches - before
+        check_answers(Engine(rebuilt), mi.g, probes, f"rebuild round {r}")
+        say(f"[maintenance] round {r}: {len(batch)} ops, {len(affected)} "
+            f"affected pairs; apply {t_apply:.3f} s, flush {t_flush:.3f} s, "
+            f"rebind {t_rebind:.3f} s; n_splits={mi.n_splits}; size ratio "
+            f"{sum(mi.size_entries()) / max(size0, 1):.4f}; n_classes "
+            f"{flushed.n_classes} (rebuild {rebuilt.n_classes}); full rebuild: "
+            f"host estimate {t_rcaps:.2f} s + device build {t_rbuild:.3f} s")
+    del rebuilt, mi, m_engine, flushed  # the mirror holds gigabytes at 20k
+
+    # one interest round on an iaCPQx mirror
+    ints_m = ints if g_m is g else interests_for(g_m)
+    t0 = time.perf_counter()
+    mia = MaintainableIndex.build(g_m, K, interests=ints_m)
+    t_ia_mirror = time.perf_counter() - t0
+    ia_engine = Engine(mia.flush())
+    check_answers(ia_engine, mia.g, probes, "iaCPQx mirror (pristine flush)")
+    t0 = time.perf_counter()
+    mia.delete_interest(ints_m[0])
+    t_del = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mia.insert_interest(ints_m[0])
+    t_ins = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flushed = mia.flush()
+    torch.cuda.synchronize()
+    t_flush = time.perf_counter() - t0
+    ia_engine.rebind(flushed)
+    check_answers(ia_engine, mia.g, probes, "iaCPQx mirror interest round")
+    say(f"[maintenance] iaCPQx mirror of gmark_citation({MAINT_VERTICES}): "
+        f"build {t_ia_mirror:.2f} s; delete_interest{ints_m[0]} {t_del:.3f} s, "
+        f"insert_interest{ints_m[0]} {t_ins:.3f} s, flush {t_flush:.3f} s; "
+        f"n_splits={mia.n_splits}; n_classes {flushed.n_classes}")
+    m_counts = read_counts("maintenance (flush + rebind + queries, and the "
+                           "rebuilds)", maint_kernels)
+    say(f"[maintenance] of which the rebuilds' fingerprint_rows launches: "
+        f"{rebuild_fp}; every answer equals the scipy.sparse reference")
+    path_counts["maintenance"] = m_counts
+    for name, fn in real.items():
+        setattr(ops, name, fn)
+    counts = {name: sum(c[name] for c in path_counts.values()) for name in KERNELS}
+    say(f"[paths] kernel launches summed over the three paths: {counts}")
+
+    # ---- kernels on the index's arrays and on the paths' inputs ------- #
     err["sorted_member_mask"] = max(err["sorted_member_mask"], check_parity(
         "sorted_member_mask", sorted_intersect.sorted_member_mask,
         ref.sorted_member_mask,
@@ -512,13 +765,11 @@ def main() -> int:
         "expand_join_gather", expand_join.expand_join_gather,
         ref.expand_join_gather,
         index_join_cases(index, dev) + [recorded["expand_join_gather"][1]]))
+    err["fingerprint_rows"] = max(err["fingerprint_rows"], check_parity(
+        "fingerprint_rows", fingerprint.fingerprint_rows, ref.fingerprint_rows,
+        [recorded["fingerprint_rows"][1]]))
     say("[parity] on the built index's l2c/class_starts/c2p arrays and on the "
-        "main path's largest inputs: bit-exact (tolerance 0)")
-
-    kernel_fns = {"sorted_member_mask": sorted_intersect.sorted_member_mask,
-                  "expand_join_gather": expand_join.expand_join_gather}
-    plain_fns = {"sorted_member_mask": ref.sorted_member_mask,
-                 "expand_join_gather": ref.expand_join_gather}
+        "paths' largest inputs: bit-exact (tolerance 0)")
 
     def member_work(hay, cnt, q):
         lanes, n_hay = hay.shape
@@ -544,8 +795,15 @@ def main() -> int:
         return (bytes_, ops_, None, f"B={lanes} n_a={n_a} n_b={b_v.shape[0]} "
                 f"out_capacity={cap} rows={rows}")
 
+    def fingerprint_work(cols, salt):
+        n, k = cols[0].shape[0], len(cols)
+        bytes_ = 4 * k * n + 16 * n  # k int32 columns in, two int64 lanes out
+        ops_ = n * k * 2 * 12  # per column and lane: ~12 uint32 operations
+        return (bytes_, ops_, None, f"n={n} k={k} salt={salt}")
+
     work_of = {"sorted_member_mask": member_work,
-               "expand_join_gather": gather_work}
+               "expand_join_gather": gather_work,
+               "fingerprint_rows": fingerprint_work}
 
     def timed(name, args, where):
         bytes_, ops_, lib_fn, shape = work_of[name](*args)
@@ -566,7 +824,7 @@ def main() -> int:
 
     out = []
     for name, (src, replaces) in KERNELS.items():
-        rec = timed(name, recorded[name][1], "the main path's largest call")
+        rec = timed(name, recorded[name][1], "the paths' largest call")
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name],
                     "max_abs_err": err[name], **rec})
@@ -578,10 +836,19 @@ def main() -> int:
     # where a query's time goes: device busy share of execute
     for name in ("T", "C4"):
         qs = [q for q, _ in per_template[name]]
-        wall, busy, top = busy_share(lambda: [engine.execute(q) for q in qs])
+        wall, busy, top, _ = busy_share(lambda: [engine.execute(q) for q in qs])
         say(f"[profile] execute x{len(qs)} {name}: wall {wall / len(qs):.3f} ms "
             f"a query, device busy {busy / len(qs):.3f} ms a query "
             f"({100 * busy / wall:.1f}%); top kernels {top}")
+
+    # where a build's device time goes (capacities given: no host estimate)
+    for what, fn in (
+            ("CPQx", lambda: cindex.build(g, K, caps=caps)),
+            ("iaCPQx", lambda: interest.build_interest(g, K, ints, caps=caps))):
+        wall, busy, top, fp_ms = busy_share(fn, match="fingerprint")
+        say(f"[profile] {what} build of gmark_citation({N_VERTICES}): wall "
+            f"{wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
+            f"fingerprint_rows {fp_ms:.4f} ms; top kernels {top}")
 
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(smi_line)

@@ -1,4 +1,5 @@
 """CPQ-aware path indexing (CPQx) on a torch device: the capacity-padded
 relational substrate, Algorithm 1's k-path-bisimulation, Algorithm 2's
-index assembly, the host-side planner and optimizer, and the plan walker
-under the overflow ladder."""
+index assembly, interest-aware iaCPQx (Sec. V), lazy maintenance on a
+host mirror flushed to the device (Sec. IV-E, V-C), the host-side
+planner and optimizer, and the plan walker under the overflow ladder."""

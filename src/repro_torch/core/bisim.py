@@ -11,8 +11,9 @@ fingerprint (after exact dedup of its elements) and block ids are
 
 Final class ids are dense ranks over the signature (cycle, b_1..b_k)
 with b_i = -1 (Null) where the pair has no length-i path.  The only
-hashing is the 64-bit set fingerprint, so class ids match the reference
-bit for bit only if the fingerprints do.
+hashing is the 64-bit set fingerprint (``kernels.ops.fingerprint_rows``:
+the CUDA kernel on the card, the plain version on the CPU), so class ids
+match the reference bit for bit only if the fingerprints do.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import ops
 from . import relational as R
 from .paths import DeviceGraph, _recap
 
@@ -62,7 +64,7 @@ def _rank_pairs_by_set(rows: R.Relation, set_cols: tuple, salt: int):
     cap = rows.capacity
     # segment ids per (v, u); segment id i == position i among unique pairs
     seg, n_pairs = R.dense_rank(rows, num_keys=2)
-    h1, h2 = R.fingerprint_rows(set_cols, salt=salt)
+    h1, h2 = ops.fingerprint_rows(set_cols, salt=salt)
     f1, f2 = R.segment_fingerprint(h1, h2, seg, cap, R.valid_mask(rows))
     # one representative row per pair (first occurrence = sorted order)
     pairs = R.rel_unique(rows, num_keys=2)  # (v, u, ...) count = n_pairs

@@ -7,6 +7,10 @@ vectorized numpy (sorted expansion joins + ``np.unique``) and returns
 
 On overflow (a device op reports dropped rows — only possible when the
 caller overrides the estimate downward) ``core.index.build`` raises.
+
+:class:`FlushCaps` sizes a maintenance flush (the mirror's two inverted
+maps only), and ``encode_caps``/``decode_caps`` carry either kind as one
+small int vector.
 """
 
 from __future__ import annotations
@@ -109,3 +113,80 @@ def estimate_build_caps(g: LabeledGraph, k: int, slack: float = 1.0) -> BuildCap
         l2c_rows=_round_pow2(int(l2c_upper * slack)),
         n_seqs=_round_pow2(int(n_seqs * slack)),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class FlushCaps:
+    """Capacities for re-serializing a lazily-updated host mirror into
+    device arrays (``core.maintenance.MaintainableIndex.flush``).
+
+    Unlike :class:`BuildCaps` (sized for the whole device build pipeline,
+    including intermediate join relations), a flush only materializes the
+    final two inverted maps, so three capacities suffice:
+
+    pair_cap : |P^{<=k}| rows (pair table, c2p table, class CSR)
+    l2c_cap  : distinct (seq, class) entries
+    seq_cap  : distinct label sequences
+    """
+
+    pair_cap: int
+    l2c_cap: int
+    seq_cap: int
+
+    @staticmethod
+    def for_sizes(n_pairs: int, n_l2c: int, n_seqs: int) -> "FlushCaps":
+        return FlushCaps(_round_pow2(n_pairs), _round_pow2(n_l2c),
+                         _round_pow2(n_seqs))
+
+    def grown_for(self, n_pairs: int, n_l2c: int, n_seqs: int) -> "FlushCaps":
+        """Geometric growth: double each capacity until the mirror fits
+        (capacities never shrink, so repeated flushes of a growing mirror
+        reuse the same array shapes until a doubling is genuinely
+        needed)."""
+
+        def grow(cap: int, need: int) -> int:
+            while cap < need:
+                cap *= 2
+            return cap
+
+        out = FlushCaps(grow(self.pair_cap, n_pairs),
+                        grow(self.l2c_cap, n_l2c),
+                        grow(self.seq_cap, n_seqs))
+        return self if out == self else out
+
+
+# ---------------------------------------------------------------------- #
+# caps codec — caps travel inside mirror snapshots
+# (``MaintainableIndex.export_state``) as one small int vector
+# (strings/dataclasses can't be npy leaves).  Tag word selects the
+# kind; capacities only ever hold small non-negative ints, so -1 is free
+# to mean "no caps recorded".
+# ---------------------------------------------------------------------- #
+def encode_caps(caps) -> np.ndarray:
+    """``FlushCaps``/``BuildCaps``/``None`` -> int64 vector."""
+    if caps is None:
+        return np.array([-1], dtype=np.int64)
+    if isinstance(caps, FlushCaps):
+        return np.array([0, caps.pair_cap, caps.l2c_cap, caps.seq_cap],
+                        dtype=np.int64)
+    if isinstance(caps, BuildCaps):
+        return np.array(
+            [1, caps.pair_cap, caps.union_pair_cap, caps.seq_rows,
+             caps.l2c_rows, caps.n_seqs, *caps.level_rows], dtype=np.int64)
+    raise TypeError(f"cannot encode caps of type {type(caps).__name__}")
+
+
+def decode_caps(arr):
+    """Inverse of :func:`encode_caps`."""
+    a = np.asarray(arr, dtype=np.int64).ravel()
+    tag = int(a[0])
+    if tag == -1:
+        return None
+    if tag == 0:
+        return FlushCaps(int(a[1]), int(a[2]), int(a[3]))
+    if tag == 1:
+        return BuildCaps(
+            level_rows=tuple(int(x) for x in a[6:]),
+            pair_cap=int(a[1]), union_pair_cap=int(a[2]),
+            seq_rows=int(a[3]), l2c_rows=int(a[4]), n_seqs=int(a[5]))
+    raise ValueError(f"unknown caps tag {tag}")

@@ -102,14 +102,17 @@ class Engine:
         self.rebind(index)
 
     def rebind(self, index: CPQxIndex) -> None:
-        """Swap in a new index in place: re-pulls the host-side statistics
-        view (optimizer + capacity estimator) and the default caps, and
+        """Swap in a new index (a maintenance flush or a rebuild) in place:
+        re-pulls the host-side statistics view (optimizer + capacity
+        estimator), the set of sequences an iaCPQx index holds (the
+        planners split every other sequence) and the default caps, and
         rebuilds the backend."""
         if index.device != self.device:
             raise ValueError(
                 f"index lies on {index.device}, engine expects {self.device}; "
                 f"pass device='{index.device}' to run there")
         self.index = index
+        self._available = index.available_seqs() if index.interests is not None else None
         self.stats = IndexStats.from_index(index)
         self._class_sizes = self.stats.class_sizes
         self._l2c_host = self.stats.l2c_cls
@@ -121,8 +124,9 @@ class Engine:
         index statistics by default, syntactic (``plan_query``) when the
         engine was constructed with ``optimize=False``."""
         if self.optimize:
-            return optimize_query(q, self.index.k, self.stats)
-        return plan_query(q, self.index.k)
+            return optimize_query(q, self.index.k, self.stats,
+                                  available=self._available)
+        return plan_query(q, self.index.k, available=self._available)
 
     def estimate_caps(self, ranges: np.ndarray, shape,
                       plan=None) -> QueryCaps:

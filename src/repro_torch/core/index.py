@@ -21,13 +21,14 @@ and join work stays on the device).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Mapping, NamedTuple
 
+import numpy as np
 import torch
 
 from . import relational as R
 from .bisim import path_partition
-from .capacity import BuildCaps, estimate_build_caps
+from .capacity import BuildCaps, FlushCaps, estimate_build_caps
 from .graph import LabeledGraph
 from .paths import device_graph, enumerate_path_levels, seq_rows_of_levels, _recap
 
@@ -165,7 +166,8 @@ class CPQxIndex:
     n_vertices: int
     arrays: DeviceIndexArrays
     seq_ranges: dict
-    caps: BuildCaps | None
+    caps: BuildCaps | FlushCaps | None
+    interests: frozenset | None = None  # None => full CPQx
 
     @property
     def device(self) -> torch.device:
@@ -186,6 +188,9 @@ class CPQxIndex:
     def lookup_range(self, seq: tuple) -> tuple[int, int]:
         return self.seq_ranges.get(tuple(seq), (0, 0))
 
+    def available_seqs(self) -> set:
+        return set(self.seq_ranges)
+
 
 def _pull_seq_ranges(arrays: DeviceIndexArrays, k: int) -> dict:
     """Host dict of seq -> (start, end), from one pull per column."""
@@ -199,6 +204,101 @@ def _pull_seq_ranges(arrays: DeviceIndexArrays, k: int) -> dict:
         tuple(row[:ln]): (s, e)
         for row, ln, s, e in zip(rows, lengths, starts, ends)
     }
+
+
+def from_host_mirror(
+    k: int,
+    n_vertices: int,
+    l2c: Mapping,
+    c2p: Mapping,
+    cyclic: Mapping,
+    caps: FlushCaps | None = None,
+    interests: frozenset | None = None,
+    device=None,
+) -> CPQxIndex:
+    """Serialize a host-form index (the ``oracle.Index`` dict triple) into
+    :class:`DeviceIndexArrays` — the mirror→device half of lazy maintenance
+    (Sec. IV-E) — on the CUDA card unless ``device`` names another.
+
+    Class ids are *renumbered densely* (in ascending old-id order, so every
+    sorted class list stays sorted under the order-preserving remap) but the
+    partition itself is untouched: lazily-split classes are serialized
+    exactly as the mirror holds them, never merged back.  ``caps`` lets a
+    caller reuse (and geometrically grow) the capacities of a previous
+    flush so array shapes stay stable while the mirror fits.  The arrays
+    are laid out with numpy on the host, then uploaded once per field.
+    """
+    dev = resolve_device(device)
+    old_ids = sorted(c for c, ps in c2p.items() if ps)
+    remap = {c: i for i, c in enumerate(old_ids)}
+    n_classes = len(old_ids)
+
+    pair_rows = np.array(
+        [(v, u, remap[c]) for c in old_ids for (v, u) in c2p[c]],
+        np.int64,
+    ).reshape(-1, 3)
+    n_pairs = pair_rows.shape[0]
+    seqs = sorted(tuple(s) for s in l2c)
+    n_l2c = sum(len(l2c[s]) for s in seqs)
+    caps = (caps or FlushCaps.for_sizes(n_pairs, n_l2c, len(seqs)))
+    caps = caps.grown_for(n_pairs, n_l2c, len(seqs))
+
+    def pad_col(values, cap, fill=int(R.SENTINEL)):
+        buf = np.full(cap, fill, np.int32)
+        buf[: len(values)] = values
+        return buf
+
+    # ---------------- pair table, sorted by (v, u) ---------------- #
+    byp = pair_rows[np.lexsort((pair_rows[:, 1], pair_rows[:, 0]))]
+    pair_v = pad_col(byp[:, 0], caps.pair_cap)
+    pair_u = pad_col(byp[:, 1], caps.pair_cap)
+    pair_cls = pad_col(byp[:, 2], caps.pair_cap)
+
+    # ------------- I_c2p: sorted by (class, v, u) + CSR ------------- #
+    byc = pair_rows[np.lexsort((pair_rows[:, 1], pair_rows[:, 0], pair_rows[:, 2]))]
+    c2p_cls = pad_col(byc[:, 2], caps.pair_cap)
+    c2p_v = pad_col(byc[:, 0], caps.pair_cap)
+    c2p_u = pad_col(byc[:, 1], caps.pair_cap)
+    class_starts = np.searchsorted(
+        c2p_cls.astype(np.int64), np.arange(caps.pair_cap + 1), side="left"
+    ).astype(np.int32)
+    class_cyclic = np.zeros(caps.pair_cap, np.int32)
+    for c in old_ids:
+        class_cyclic[remap[c]] = 1 if cyclic[c] else 0
+
+    # ------------- I_l2c: seq table + per-seq class ranges ------------- #
+    seq_table = np.full((caps.seq_cap, k), -1, np.int32)
+    seq_starts = np.zeros(caps.seq_cap, np.int32)
+    seq_ends = np.zeros(caps.seq_cap, np.int32)
+    l2c_flat: list[int] = []
+    seq_ranges: dict = {}
+    for i, s in enumerate(seqs):
+        seq_table[i, : len(s)] = s
+        start = len(l2c_flat)
+        l2c_flat.extend(sorted(remap[c] for c in l2c[s]))
+        seq_starts[i] = start
+        seq_ends[i] = len(l2c_flat)
+        seq_ranges[s] = (start, len(l2c_flat))
+    l2c_cls = pad_col(l2c_flat, caps.l2c_cap)
+
+    def up(x, dtype=R.I32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype).to(dev)
+
+    arrays = DeviceIndexArrays(
+        pair_v=up(pair_v), pair_u=up(pair_u), pair_cls=up(pair_cls),
+        pair_count=up(n_pairs),
+        c2p_cls=up(c2p_cls), c2p_v=up(c2p_v), c2p_u=up(c2p_u),
+        class_starts=up(class_starts), class_cyclic=up(class_cyclic),
+        n_classes=up(n_classes),
+        seq_table=up(seq_table), seq_count=up(len(seqs)),
+        seq_starts=up(seq_starts), seq_ends=up(seq_ends),
+        l2c_cls=up(l2c_cls), l2c_count=up(n_l2c),
+        overflow=up(False, torch.bool),
+    )
+    return CPQxIndex(
+        k=k, n_vertices=n_vertices, arrays=arrays, seq_ranges=seq_ranges,
+        caps=caps, interests=interests,
+    )
 
 
 def build(g: LabeledGraph, k: int, caps: BuildCaps | None = None,

@@ -1,4 +1,5 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), their ctypes
 bindings, their plain PyTorch versions (``ref.py``) and the device
-dispatch the engine calls (``ops.py``): sorted_intersect (CONJUNCTION)
-and expand_join (I_c2p materialization)."""
+dispatch the engine calls (``ops.py``): sorted_intersect (CONJUNCTION),
+expand_join (I_c2p materialization) and fingerprint (the index build's
+signature-set hashing)."""

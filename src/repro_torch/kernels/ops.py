@@ -4,13 +4,15 @@ CUDA tensors always go to the hand-written CUDA kernel; a build or launch
 failure raises.  CPU tensors go to the plain PyTorch version in
 ``ref.py``.  There is no other route: no size ceiling and no switch.
 
-Both take a leading lane dimension (one lane per query of a batch)."""
+The two query-path kernels take a leading lane dimension (one lane per
+query of a batch); ``fingerprint_rows`` takes 1-D build columns."""
 
 from __future__ import annotations
 
 import torch
 
 from . import expand_join as _ej
+from . import fingerprint as _fp
 from . import ref
 from . import sorted_intersect as _si
 
@@ -34,3 +36,11 @@ def expand_join_gather(ends, lo, a_payload, b_v, b_u, total, out_capacity: int):
             out_capacity)
     return ref.expand_join_gather(ends, lo, a_payload, b_v, b_u, total,
                                   out_capacity)
+
+
+def fingerprint_rows(cols, salt: int = 0) -> tuple:
+    """Two uint32 fingerprints per row of int32 columns, as int64 tensors
+    holding values in [0, 2^32)."""
+    if cols[0].is_cuda:
+        return _fp.fingerprint_rows(tuple(c.contiguous() for c in cols), salt)
+    return ref.fingerprint_rows(cols, salt)

@@ -1,13 +1,16 @@
-"""Plain PyTorch versions of the two CUDA kernels — what ``ops`` runs for
-tensors on the CPU, and what the kernels are held against on the card.
+"""Plain PyTorch versions of the three CUDA kernels — what ``ops`` runs
+for tensors on the CPU, and what the kernels are held against on the card.
 
-Both take a leading lane dimension: per-lane inputs are (B, n), per-lane
-scalars (B,), and the shared build-side columns of ``expand_join_gather``
-are 1-D."""
+The two query-path kernels take a leading lane dimension: per-lane inputs
+are (B, n), per-lane scalars (B,), and the shared build-side columns of
+``expand_join_gather`` are 1-D.  ``fingerprint_rows`` is the substrate's
+own int64-lane hash."""
 
 from __future__ import annotations
 
 import torch
+
+from ..core.relational import fingerprint_rows  # noqa: F401  (the plain version)
 
 SENTINEL = 2**31 - 1
 

@@ -12,9 +12,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import convert  # noqa: E402
 from repro_torch.core import index as tindex  # noqa: E402
+from repro_torch.core import interest  # noqa: E402
 from repro_torch.core.engine import Engine  # noqa: E402
 from repro_torch.core.graph import example_graph  # noqa: E402
+from repro_torch.core.maintenance import MaintainableIndex  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -48,7 +51,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, env=env, cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    assert len(mods) > 15
+    for m in ("repro_torch.core.interest", "repro_torch.core.maintenance",
+              "repro_torch.core.oracle", "repro_torch.kernels.fingerprint"):
+        assert m in mods
 
 
 def test_no_jax_or_repro_imports_in_the_source():
@@ -77,6 +82,27 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(index)
     assert Engine(index, device="cpu").execute is not None
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interest.build_interest(g, 2, [(0, 1)])
+    assert interest.build_interest(g, 2, [(0, 1)], device="cpu").device.type == "cpu"
+
+    mi = MaintainableIndex.build(g, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mi.flush()
+    assert mi.flush(device="cpu").device.type == "cpu"
+
+    ix = mi.index
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tindex.from_host_mirror(2, g.n_vertices, ix.l2c, ix.c2p, ix.cyclic)
+    assert tindex.from_host_mirror(2, g.n_vertices, ix.l2c, ix.c2p, ix.cyclic,
+                                   device="cpu").device.type == "cpu"
+
+    host = convert.index_to_numpy(index)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.index_from_numpy(host, 2, g.n_vertices)
+    assert convert.index_from_numpy(host, 2, g.n_vertices,
+                                    device="cpu").device.type == "cpu"
 
 
 def test_engine_never_moves_an_index():

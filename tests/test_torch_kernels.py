@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the port's two kernels
+"""The plain PyTorch versions of the port's three kernels
 (``repro_torch.kernels.ref``, what ``ops`` runs for CPU tensors) held bit
 for bit against the JAX package's ``kernels.ops`` (Pallas in interpret
 mode on the CPU), lane by lane, on the reference kernel tests' shapes.
@@ -13,9 +13,10 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.kernels import expand_join, ops, sorted_intersect  # noqa: E402
+from repro_torch.kernels import expand_join, fingerprint, ops, sorted_intersect  # noqa: E402
 
 SENTINEL = 2**31 - 1
+INT_MIN = -(2**31)
 
 
 def _member_case(rng, n_hay, n_q):
@@ -91,15 +92,56 @@ def test_expand_join_gather(lanes, seed):
             np.testing.assert_array_equal(g[lane].numpy(), np.asarray(e))
 
 
+def _assert_same_fingerprint(cols, salt):
+    got = ops.fingerprint_rows(tuple(torch.from_numpy(c) for c in cols), salt=salt)
+    exp = jops.fingerprint_rows(tuple(jnp.asarray(c) for c in cols), salt=salt)
+    for g, e in zip(got, exp):
+        e = np.asarray(e)
+        assert g.dtype == torch.int64 and e.dtype == np.uint32
+        assert g.shape == e.shape
+        # the port holds uint32 values in int64 lanes: compare the integers
+        np.testing.assert_array_equal(g.numpy(), e.astype(np.int64))
+
+
+@pytest.mark.parametrize("n_cols", [1, 2, 4])
+@pytest.mark.parametrize("n", [16, 100, 2048, 4096])
+def test_fingerprint_rows(n_cols, n):
+    """The reference's ``TestFingerprint`` sweep."""
+    rng = np.random.default_rng(n * 31 + n_cols)
+    cols = [rng.integers(-5, 1000, n).astype(np.int32) for _ in range(n_cols)]
+    _assert_same_fingerprint(cols, salt=3)
+
+
+@pytest.mark.parametrize("salt", [0, 1, 77])
+@pytest.mark.parametrize("n_cols", [1, 3, 5])
+def test_fingerprint_rows_padding_values(salt, n_cols):
+    """-1 (sequence padding), SENTINEL and INT_MIN reinterpret as uint32
+    exactly as the reference's casts do."""
+    rng = np.random.default_rng(salt * 7 + n_cols)
+    n = 2048
+    cols = []
+    for _ in range(n_cols):
+        c = rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+        roll = rng.random(n)
+        c[roll < 0.1] = -1
+        c[(roll >= 0.1) & (roll < 0.2)] = SENTINEL
+        c[(roll >= 0.2) & (roll < 0.3)] = INT_MIN
+        cols.append(c)
+    _assert_same_fingerprint(cols, salt=salt)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """CPU tensors never reach a CUDA kernel, so no launch is counted."""
-    before = (sorted_intersect.launches, expand_join.launches)
+    before = (sorted_intersect.launches, expand_join.launches,
+              fingerprint.launches)
     hay = torch.tensor([[1, 3, 5]], dtype=torch.int32)
     one = torch.tensor([3], dtype=torch.int32)
     ops.sorted_member_mask(hay, one, hay)
     ops.expand_join_gather(one[None], torch.zeros(1, 1, dtype=torch.int32),
                            one[None], hay[0], hay[0], one, 4)
-    assert (sorted_intersect.launches, expand_join.launches) == before
+    ops.fingerprint_rows((hay[0], hay[0]), salt=1)
+    assert (sorted_intersect.launches, expand_join.launches,
+            fingerprint.launches) == before
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -111,4 +153,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         expand_join.expand_join_gather(one[None], one[None], one[None], one, one,
                                        one, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        fingerprint.fingerprint_rows((one, one), salt=1)
+
+
+@pytest.mark.parametrize("n_cols", [0, fingerprint.MAX_COLS + 1])
+def test_fingerprint_wrapper_refuses_column_counts_it_cannot_take(n_cols):
+    cols = tuple(torch.zeros(4, dtype=torch.int32) for _ in range(n_cols))
+    with pytest.raises(ValueError, match="columns"):
+        fingerprint.fingerprint_rows(cols)
 
