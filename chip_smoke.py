@@ -7,9 +7,11 @@ Phases, each printed on its own lines:
 1. device      — the card's name, and its name and power limit from nvidia-smi;
 2. build       — nvcc builds the CUDA kernels of src/repro_torch/kernels/csrc;
 3. parity      — each CUDA kernel against its plain PyTorch version on the
-                 card, bit for bit: the CPU tests' shapes, SENTINEL, -1,
-                 INT_MIN and empty cases, several lanes; small CPQx and iaCPQx
-                 builds (gmark_citation(500)) held bit for bit against the CPU;
+                 card: the three integer kernels bit for bit (the CPU tests'
+                 shapes, SENTINEL, -1, INT_MIN and empty cases, several
+                 lanes), segment_softmax within 1e-6 (float32) and 2e-2
+                 (bfloat16); small CPQx and iaCPQx builds (gmark_citation(500))
+                 held bit for bit against the CPU;
 4. index       — CPQx for gmark_citation(20_000, avg_degree=6, seed=3) at k=2
                  on the card;
 5. queries     — the 12 templates with seeded labels through Engine.execute and
@@ -21,15 +23,26 @@ Phases, each printed on its own lines:
                  100 mixed updates, each applied, flushed to the card and
                  rebound, its answers checked, beside a full rebuild; then one
                  interest round on an iaCPQx mirror;
+8. serving     — a QueryService (union dispatch, admission control) over the
+                 CPQx engine of phase 4, fed phase 5's draws by two tenants in
+                 bursts past its queue bound; then a second service with the
+                 write path and the adaptation loop over phase 7's iaCPQx
+                 mirror, fed a drifting two-tenant stream and one batch of 100
+                 updates; answers held to the scipy reference;
+9. rpq         — the RPQ benchmark's seven Cypher texts, lowered by the port,
+                 through Engine.execute_rpq (or execute) and the service,
+                 held to a boolean scipy.sparse fixpoint written here;
+10. edge_softmax — the GNN substrate's edge softmax at the repository's graph
+                 shapes, float32 and bfloat16;
    then the kernels again, on the built index's own arrays and on the inputs
    the paths gave them, with their times.
 
-Each path (phases 4-5, 6 and 7) is driven with the launch counts set to 0
-just before it and read just after; a path that never launched one of its
-kernels fails.  The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.  Any failure exits non-zero; without a CUDA
-card, or outside a checkout of the repository, the script exits non-zero
-before printing any result.
+Each path (phases 4-5, 6, 7, 8's two services, 9 and 10) is driven with the
+launch counts set to 0 just before it and read just after; a path that never
+launched one of its kernels fails.  The last two lines are the kernels' JSON
+record and {"ok": true, "device": {...}}.  Any failure exits non-zero;
+without a CUDA card, or outside a checkout of the repository, the script
+exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -55,6 +68,34 @@ MAX_ANSWER = 4_194_304  # drop a draw whose reference answer is larger
 MAX_REF_FLOPS = 64_000_000  # ... or whose reference product costs more
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12  # CUDA-core rate (float32 peak) used for int32 work
+SERVE_BURST = 48  # requests a burst; the read service admits 32 at a time
+DRIFT_PER_PHASE = 96  # requests per phase of the drifting write-path stream
+# benchmarks/common.py ADAPTIVE_PHASES: the adaptive benchmark's two phases
+# of hot (template, labels)
+ADAPTIVE_PHASES = [
+    [("T", (0, 0, 1)), ("S", (0, 0, 2, 3))],
+    [("T", (6, 6, 7)), ("S", (6, 6, 9, 8))],
+]
+# benchmarks/bench_rpq.py WORKLOAD: Cypher over positional types
+RPQ_TEXTS = [
+    "MATCH (a)-[:l0*]->(b) RETURN a, b",
+    "MATCH (a)-[:l0*0..]->(b) RETURN a, b",
+    "MATCH (a)-[:l0|l1*]->(b) RETURN a, b",
+    "MATCH (a)<-[:l0*1..3]-(b) RETURN a, b",
+    "MATCH (a)-[:l0]->(b)-[:l1*0..]->(c) RETURN a, c",
+    "MATCH (a)-[:l0*2..3]->(b)-[:l1]->(c) RETURN a, c",
+    "MATCH (a)-[:l0]->(b)-[:l1]->(c) RETURN a, c",
+]
+PIN_TRIES = 5  # sources tried when a star must be pinned
+# src/repro/configs/__init__.py gnn_shapes at the repository's GatedGCN width
+# (configs/gatedgcn.py d_hidden=70): (name, E, D, N)
+SOFTMAX_CASES = [
+    ("full_graph_sm", 10_556, 1, 2_708),
+    ("minibatch_lg", 168_960, 70, 169_984),
+    ("ogb_products", 61_859_140, 1, 2_449_029),
+    ("bench_kernels", 16_384, 8, 1_024),
+]
+SOFTMAX_TOL = {"float32": 1e-6, "bfloat16": 2e-2}  # rtol = atol
 TEMPLATES = ["C2", "C4", "C2i", "T", "Ti", "S", "Si", "TT", "St",
              "TC", "SC", "ST"]
 KERNELS = {
@@ -64,7 +105,10 @@ KERNELS = {
                            "src/repro/kernels/expand_join.py:69"),
     "fingerprint_rows": ("src/repro_torch/kernels/csrc/fingerprint.cu",
                          "src/repro/kernels/fingerprint.py:53"),
+    "segment_softmax": ("src/repro_torch/kernels/csrc/segment_softmax.cu",
+                        "src/repro/kernels/segment_softmax.py:40"),
 }
+INDEX_KERNELS = ("sorted_member_mask", "expand_join_gather", "fingerprint_rows")
 
 
 def fail(msg: str, code: int = 1):
@@ -272,6 +316,21 @@ def update_batch(g, rng, n_ops: int) -> list:
     return ops
 
 
+def tenant_report(what, stats, accepted, wall: float) -> None:
+    """Per tenant: latency p50/p99 of its accepted requests, q/s over the
+    replay's wall time, drain rounds that completed its requests, cache
+    hits and sheds."""
+    for t, ts in sorted(stats.tenants.items()):
+        mine = [r for r in accepted if r.tenant == t]
+        lat = [1e3 * r.latency for r in mine] or [0.0]
+        rounds = len({r.t_done for r in mine if not r.from_cache})
+        say(f"[{what}] tenant {t}: submitted {ts.submitted}, served "
+            f"{ts.served}, shed {ts.shed} {ts.shed_reasons}, cache hits "
+            f"{ts.cache_hits}, rounds {rounds}; latency p50 "
+            f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} "
+            f"ms; {ts.served / wall:.1f} q/s")
+
+
 def check_answers(engine, g, queries, what: str) -> None:
     """One ``execute`` per query, held to a scipy reference built on ``g``
     now (no cost limit: the draws were cheap on the graph they came from)."""
@@ -433,6 +492,147 @@ def check_parity(name, kernel, plain, cases) -> int:
 
 
 # ---------------------------------------------------------------------- #
+# the plain reference of RPQ answers: a boolean scipy.sparse fixpoint
+# ---------------------------------------------------------------------- #
+
+
+class TooCostly(Exception):
+    """A reference evaluation passed MAX_REF_FLOPS or MAX_ANSWER."""
+
+
+def rpq_reference(refm, q, srcs=None):
+    """The answer of the (normalized) RPQ ``q`` as a boolean CSR matrix
+    whose rows are the sources (every vertex, or ``srcs`` in order): a
+    symbol is a product with its label's matrix, an alternation a sum, a
+    star iterates from the frontier until no pair is new.  Raises
+    TooCostly once the products' multiply-adds pass MAX_REF_FLOPS or an
+    intermediate passes MAX_ANSWER pairs."""
+    from repro_torch.core.rpq import RAlt, RConcat, ROpt, RPlus, RStar, RSym
+
+    sp = refm.sp
+    if srcs is None:
+        front = sp.identity(refm.n, dtype=bool, format="csr")
+    else:
+        front = sp.csr_matrix((np.ones(len(srcs), bool),
+                               (np.arange(len(srcs)), np.asarray(srcs))),
+                              shape=(len(srcs), refm.n), dtype=bool)
+    budget = [MAX_REF_FLOPS]
+
+    def bounded(m):
+        if m.nnz > MAX_ANSWER:
+            raise TooCostly(f"{m.nnz} pairs")
+        return m
+
+    def ev(node, f):
+        if isinstance(node, RSym):
+            m = refm.mats[node.label]
+            budget[0] -= int(np.diff(m.indptr)[f.indices].sum())
+            if budget[0] < 0:
+                raise TooCostly("flops")
+            return bounded((f @ m).astype(bool).tocsr())
+        if isinstance(node, RConcat):
+            return ev(node.rhs, ev(node.lhs, f))
+        if isinstance(node, RAlt):
+            return bounded((ev(node.lhs, f) + ev(node.rhs, f)).tocsr())
+        if isinstance(node, ROpt):
+            return bounded((f + ev(node.inner, f)).tocsr())
+        if isinstance(node, RPlus):
+            return ev(RStar(node.inner), ev(node.inner, f))
+        if isinstance(node, RStar):
+            reached, delta = f, f
+            while delta.nnz:
+                delta = (ev(node.inner, delta) > reached).tocsr()
+                reached = bounded((reached + delta).tocsr())
+            return reached
+        raise TypeError(node)
+
+    return ev(q, front)
+
+
+def rpq_pairs(m, srcs=None) -> np.ndarray:
+    """Sorted (v, u) pairs of a reference answer matrix."""
+    rows = SparseReference.rows(m)
+    if srcs is not None:
+        rows[:, 0] = np.asarray(srcs)[rows[:, 0]]
+        rows = rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+    return rows
+
+
+def pin_candidates(g, parsed, n_labels: int) -> list:
+    """Sources for a pinned star: the vertices with the most edges of the
+    chain's first hop (its types, inverted for ``<-``), most first."""
+    from repro_torch.core.cypher import _resolve_type
+    from repro_torch.core.graph import inverse_label
+
+    rel = parsed.rels[0]
+    labels = [_resolve_type(t, None, n_labels) for t in rel.types]
+    if rel.back:
+        labels = [int(inverse_label(l, n_labels)) for l in labels]
+    deg = np.bincount(g.src[np.isin(g.lbl, labels)], minlength=g.n_vertices)
+    return [int(v) for v in np.argsort(-deg, kind="stable")[:PIN_TRIES]]
+
+
+# ---------------------------------------------------------------------- #
+# segment_softmax parity and shapes
+# ---------------------------------------------------------------------- #
+
+
+def softmax_cases(rng, dev):
+    """(scores, ids, N) on the card, float32 and bfloat16: the CPU tests'
+    shapes, empty segments, negative and >= N ids, unsorted ids, one edge
+    and a ragged E."""
+    import torch
+
+    out = []
+    shapes = [(512, 1, 16, True), (1024, 8, 64, True), (2048, 4, 100, True),
+              (512, 4, 64, "empty"), (1024, 2, 32, "out_of_range"),
+              (1024, 3, 50, False), (1000, 5, 30, False), (1, 1, 1, True),
+              (70_001, 70, 4_096, False)]
+    for e, d, n, kind in shapes:
+        x = rng.normal(0, 3, (e, d)).astype(np.float32)
+        if kind == "empty":  # only every third segment is used
+            seg = np.sort(rng.integers(0, n // 3, e)) * 3
+        elif kind == "out_of_range":
+            seg = rng.integers(-5, n + 8, e)
+        else:
+            seg = rng.integers(0, n, e)
+            if kind is True:
+                seg = np.sort(seg)
+        for dtype in (torch.float32, torch.bfloat16):
+            out.append((torch.as_tensor(x, device=dev).to(dtype),
+                        torch.as_tensor(seg.astype(np.int32), device=dev), n))
+    return out
+
+
+def check_softmax_parity(kernel, plain, tables, cases) -> dict:
+    """The kernel against its plain version on the same (N, D) tables, per
+    dtype; returns {dtype: max abs err}.  The tables' sums come from
+    index_add_'s atomics, whose order changes from run to run, so both
+    sides read one table and the run-to-run difference of the sums does
+    not enter the comparison."""
+    import torch
+
+    worst = {}
+    for x, seg, n in cases:
+        mx, den = tables(x, seg, n)
+        got = kernel(x, seg, mx, den)
+        exp = plain(x, seg, mx, den)
+        torch.cuda.synchronize()
+        name = str(x.dtype).replace("torch.", "")
+        if got.shape != exp.shape or got.dtype != exp.dtype:
+            fail(f"segment_softmax: shape/type {tuple(got.shape)} {got.dtype} "
+                 f"vs {tuple(exp.shape)} {exp.dtype}")
+        tol = SOFTMAX_TOL[name]
+        g32, e32 = got.float(), exp.float()
+        if not torch.allclose(g32, e32, rtol=tol, atol=tol):
+            fail(f"segment_softmax {name} E={x.shape[0]} D={x.shape[1]} N={n}: "
+                 f"kernel disagrees with its plain version beyond {tol}")
+        err = float((g32 - e32).abs().max()) if x.numel() else 0.0
+        worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+# ---------------------------------------------------------------------- #
 # main
 # ---------------------------------------------------------------------- #
 
@@ -454,7 +654,8 @@ def main() -> int:
     from repro_torch.core.maintenance import MaintainableIndex
     from repro_torch.data.graphs import gmark_citation
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels import expand_join, fingerprint, ops, ref, sorted_intersect
+    from repro_torch.kernels import (expand_join, fingerprint, ops, ref,
+                                     segment_softmax, sorted_intersect)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -486,10 +687,12 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     kernel_fns = {"sorted_member_mask": sorted_intersect.sorted_member_mask,
                   "expand_join_gather": expand_join.expand_join_gather,
-                  "fingerprint_rows": fingerprint.fingerprint_rows}
+                  "fingerprint_rows": fingerprint.fingerprint_rows,
+                  "segment_softmax": segment_softmax.segment_normalize}
     plain_fns = {"sorted_member_mask": ref.sorted_member_mask,
                  "expand_join_gather": ref.expand_join_gather,
-                 "fingerprint_rows": ref.fingerprint_rows}
+                 "fingerprint_rows": ref.fingerprint_rows,
+                 "segment_softmax": ref.segment_normalize}
     err = {
         "sorted_member_mask": check_parity(
             "sorted_member_mask", sorted_intersect.sorted_member_mask,
@@ -502,8 +705,16 @@ def main() -> int:
             ref.fingerprint_rows, fingerprint_cases(rng, dev)),
     }
     say("[parity] test shapes, SENTINEL, -1, INT_MIN, empty and multi-lane "
-        "cases: all three kernels equal their plain versions (tolerance 0: "
-        "integer outputs, bit-exact)")
+        "cases: the three integer kernels equal their plain versions "
+        "(tolerance 0: integer outputs, bit-exact)")
+    softmax_err = check_softmax_parity(
+        segment_softmax.segment_normalize, ref.segment_normalize,
+        ref.segment_tables, softmax_cases(rng, dev))
+    err["segment_softmax"] = max(softmax_err.values())
+    say(f"[parity] segment_softmax on the test shapes, empty segments, negative "
+        f"and >= N ids, unsorted ids, E=1, ragged E: kernel within rtol=atol="
+        f"{SOFTMAX_TOL} of its plain version on the same tables; max abs err "
+        f"{softmax_err}")
 
     # small builds on the card held bit for bit against the CPU builds
     g_small = gmark_citation(500, avg_degree=6, seed=SEED)
@@ -529,7 +740,8 @@ def main() -> int:
             "fingerprint_rows": ops.fingerprint_rows}
     counters = {"sorted_member_mask": sorted_intersect,
                 "expand_join_gather": expand_join,
-                "fingerprint_rows": fingerprint}
+                "fingerprint_rows": fingerprint,
+                "segment_softmax": segment_softmax}
 
     def record(name, args, work):
         best = recorded[name]
@@ -645,7 +857,8 @@ def main() -> int:
         return results, n_queries
 
     run_templates(engine, "queries")
-    path_counts["cpqx"] = read_counts("main path (CPQx build + queries)", KERNELS)
+    path_counts["cpqx"] = read_counts("main path (CPQx build + queries)",
+                                      INDEX_KERNELS)
 
     # ---- 6. iaCPQx at full size (counts to 0 just before) ------------ #
     zero_counts()
@@ -665,7 +878,7 @@ def main() -> int:
         f"peak device memory of the build {ia_peak / 2**30:.3f} GiB above "
         f"{ia_resident / 2**30:.3f} GiB resident (CPQx {peak / 2**30:.3f})")
     run_templates(Engine(ia_index), "iacpqx")
-    path_counts["iacpqx"] = read_counts("iaCPQx build + queries", KERNELS)
+    path_counts["iacpqx"] = read_counts("iaCPQx build + queries", INDEX_KERNELS)
 
     # ---- 7. lazy maintenance (counts to 0 just before) --------------- #
     zero_counts()
@@ -751,10 +964,223 @@ def main() -> int:
     say(f"[maintenance] of which the rebuilds' fingerprint_rows launches: "
         f"{rebuild_fp}; every answer equals the scipy.sparse reference")
     path_counts["maintenance"] = m_counts
+
+    # ---- 8. serving: the read path (counts to 0 just before) --------- #
+    from repro_torch.core.cypher import lower_cypher, parse_cypher
+    from repro_torch.core.query import CPQ as Query
+    from repro_torch.core.rpq import FixpointInfo
+    from repro_torch.core.service import QueryService
+    from repro_torch.core.workload import AdaptationConfig, AdaptationController
+    from repro_torch.data.graphs import drifting_workload
+    from repro_torch.models.gnn import edge_softmax
+
+    zero_counts()
+    draws = [per_template[name] for name in TEMPLATES]
+    stream = [d[i] for i in range(max(len(d) for d in draws))
+              for d in draws if i < len(d)]  # every round mixes shapes
+    who = ("alpha", "alpha", "alpha", "beta")  # alpha sends 3x beta's traffic
+    svc = QueryService(engine, union=True, max_batch=64, max_queue=32,
+                       auto_flush=False)
+    lanes_before = engine.telemetry.union_lanes
+    accepted = []
+    t0 = time.perf_counter()
+    for off in range(0, len(stream), SERVE_BURST):
+        for i, (q, exp) in enumerate(stream[off: off + SERVE_BURST], off):
+            req = svc.submit(q, tenant=who[i % len(who)])
+            if not req.shed:
+                accepted.append((req, exp))
+        svc.flush()
+    wall = time.perf_counter() - t0
+    for req, exp in accepted:
+        if not req.done or req.result is None:
+            fail(f"serving: accepted request {req.rid} never completed")
+        if not np.array_equal(req.result, exp):
+            fail(f"serving: {req.query!r} answer ({len(req.result)} pairs) "
+                 f"differs from the reference ({len(exp)} pairs)")
+    union_lanes = engine.telemetry.union_lanes - lanes_before
+    say(f"[serving] read path: {len(stream)} requests of phase 5's draws in "
+        f"bursts of {SERVE_BURST}, union dispatch, max_queue 32: "
+        f"{len(accepted)} accepted, all answers equal the scipy.sparse "
+        f"reference; {svc.stats.shed} shed; {svc.stats.drain_rounds} rounds; "
+        f"union lanes {union_lanes}; {wall:.2f} s")
+    tenant_report("serving", svc.stats, [r for r, _ in accepted], wall)
+    if svc.stats.shed == 0:
+        fail("serving: bursts past max_queue shed nothing")
+    if union_lanes == 0:
+        fail("serving: no lane went through the union executable")
+    path_counts["serving"] = read_counts(
+        "serving read path (QueryService over CPQx)",
+        ("sorted_member_mask", "expand_join_gather"))
+
+    # ---- 8. serving: write path + adaptation over phase 7's mirror ---- #
+    zero_counts()
+    adapter = AdaptationController(K, config=AdaptationConfig(
+        budget=2, min_count=3.0, dwell=1, swap_margin=2.0, decay=0.5))
+    wsvc = QueryService(ia_engine, maintainer=mia, adapter=adapter,
+                        adapt_interval=48, max_batch=16, max_queue=32,
+                        auto_flush=False, union=True)
+    drift = {"alpha": ([ADAPTIVE_PHASES[0], ADAPTIVE_PHASES[1]], 3.0),
+             "beta": ([ADAPTIVE_PHASES[1], ADAPTIVE_PHASES[0]], 1.0)}
+    wstream = drifting_workload(mia.g, None, DRIFT_PER_PHASE, seed=11,
+                                tenants=drift)
+    ref_now = [mia.g, SparseReference(mia.g)]  # the reference of the live graph
+    probes, waccepted, unprobed = [], [], 0
+    wrng = np.random.default_rng(11)
+    updated = False
+    t0 = time.perf_counter()
+    for slot in wstream:
+        for off in range(0, len(slot), SERVE_BURST):
+            for i, (tenant, q) in enumerate(slot[off: off + SERVE_BURST]):
+                req = wsvc.submit(q, tenant=tenant)
+                if req.shed:
+                    continue
+                waccepted.append(req)
+                # probe only where the request sees the graph as it is now
+                if wsvc.pending_updates == 0 and i % 7 == 0:
+                    if ref_now[0] is not mia.g:
+                        ref_now[:] = [mia.g, SparseReference(mia.g)]
+                    m = ref_now[1].eval(q)
+                    if m is None or m.nnz > MAX_ANSWER:
+                        unprobed += 1
+                    else:
+                        probes.append((req, ref_now[1].rows(m)))
+            wsvc.flush()
+            if not updated:  # one batch of updates between the bursts
+                wsvc.apply_updates(update_batch(mia.g, wrng, MAINT_OPS))
+                updated = True
+        wsvc.adapt()  # a round at each phase's end, beside the interval's
+        wsvc.flush()
+    wall = time.perf_counter() - t0
+    for req in waccepted:
+        if not req.done or req.result is None:
+            fail(f"write path: accepted request {req.rid} never completed")
+    for req, exp in probes:
+        if not np.array_equal(req.result, exp):
+            fail(f"write path: {req.query!r} answer ({len(req.result)} pairs) "
+                 f"differs from the reference at submit time ({len(exp)})")
+    st = wsvc.stats
+    adapted = st.interests_inserted + st.interests_deleted
+    say(f"[serving] write path: {sum(len(x) for x in wstream)} requests of a "
+        f"drifting two-tenant stream over the iaCPQx mirror, one batch of "
+        f"{MAINT_OPS} updates: {len(waccepted)} accepted, {st.shed} shed, "
+        f"{len(probes)} probes equal the reference at submit time "
+        f"({unprobed} probes over the reference's limits skipped); "
+        f"{st.update_batches} update drains ({st.updates_applied} ops), "
+        f"{st.adapt_rounds} adaptation rounds, interests +{st.interests_inserted}"
+        f" -{st.interests_deleted}; mined now "
+        f"{sorted(s for s in mia.index.interests if len(s) >= 2)}; {wall:.2f} s")
+    tenant_report("serving", st, waccepted, wall)
+    if adapted == 0:
+        fail("write path: no adaptation op was applied")
+    if not probes:
+        fail("write path: no probe was checked")
+    path_counts["serving_write"] = read_counts(
+        "serving write path (updates + adaptation over the iaCPQx mirror)",
+        ("expand_join_gather",))
+    del wsvc, mia, ia_engine  # the mirror holds gigabytes at 20k
+
+    # ---- 9. RPQ and Cypher (counts to 0 just before) ----------------- #
+    zero_counts()
+    label_ids = {name: i for i, name in enumerate(g.label_names)}
+
+    def reference(ast, srcs):
+        if not isinstance(ast, Query):
+            return rpq_reference(refm, ast, srcs)
+        m = refm.eval(ast)
+        if m is None or m.nnz > MAX_ANSWER:
+            raise TooCostly("flops" if m is None else f"{m.nnz} pairs")
+        return m if srcs is None else m[srcs]
+
+    rsvc = QueryService(engine, max_batch=len(RPQ_TEXTS))
+    rpq_drops, served, star_iters = [], [], 0
+    for text in RPQ_TEXTS:
+        low = lower_cypher(parse_cypher(text), label_ids, g.n_labels)
+        pins = m = None
+        try:
+            m = reference(low.ast, None)
+        except TooCostly as why:
+            rpq_drops.append((text, str(why)))
+            for v in pin_candidates(g, parse_cypher(text), g.n_labels):
+                ptext = text.replace(" RETURN", f" WHERE a = {v} RETURN")
+                plow = lower_cypher(parse_cypher(ptext), label_ids, g.n_labels)
+                try:
+                    m = reference(plow.ast, [plow.src])
+                except TooCostly as why2:
+                    rpq_drops.append((ptext, str(why2)))
+                    continue
+                text, low, pins = ptext, plow, [plow.src]
+                break
+        if m is None:
+            continue
+        exp = rpq_pairs(m, pins)
+        info = FixpointInfo()
+        t0 = time.perf_counter()
+        if low.is_cpq:
+            got = engine.execute(low.ast)
+            if pins is not None:
+                got = got[np.isin(got[:, 0], pins)]
+        else:
+            got = engine.execute_rpq(low.ast, srcs=pins, info=info)
+        ms = 1e3 * (time.perf_counter() - t0)
+        if not np.array_equal(got, exp):
+            fail(f"rpq: {text}: answer ({len(got)} pairs) differs from the "
+                 f"reference ({len(exp)} pairs)")
+        if pins is None:
+            served.append((text, rsvc.submit(low.ast), exp))
+        is_star = "*]" in text or "*0..]" in text
+        if is_star and not low.is_cpq:
+            star_iters = max(star_iters, info.iterations)
+        say(f"[rpq] {text}: {'cpq' if low.is_cpq else 'rpq'}, {len(exp)} pairs "
+            f"equal the reference; iterations {info.iterations}, lookups "
+            f"{info.lookups}, rounds {info.lookup_batches}, states "
+            f"{info.states}, macro-edges {info.macro_edges}; {ms:.1f} ms")
+    rsvc.flush()
+    for text, req, exp in served:
+        if not np.array_equal(req.result, exp):
+            fail(f"rpq: {text}: the service's answer differs from the reference")
+    say(f"[rpq] dropped (reference over {MAX_REF_FLOPS} multiply-adds or "
+        f"{MAX_ANSWER} pairs): {rpq_drops}")
+    say(f"[rpq] through the service too (unpinned only: it takes no pins): "
+        f"{len(served)} queries, answers equal; star fixpoint iterations "
+        f"{star_iters}")
+    if star_iters <= 1:
+        fail("rpq: no star query kept whose fixpoint ran more than one "
+             "iteration")
+    path_counts["rpq"] = read_counts("RPQ + Cypher (execute_rpq and the service)",
+                                     ("expand_join_gather",))
+
+    # ---- 10. edge_softmax at the GNN shapes (counts to 0 just before) -- #
+    zero_counts()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    sm_inputs = []
+    for name, e, d, n in SOFTMAX_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (3 * torch.randn(e, d, generator=gen, device=dev)).to(dtype)
+            seg = torch.randint(0, n, (e,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            got = edge_softmax(x, seg, n)
+            exp = ref.segment_softmax(x, seg, n)
+            torch.cuda.synchronize()
+            tol = SOFTMAX_TOL[str(dtype).replace("torch.", "")]
+            # the sums' atomics differ run to run in the last bits: the
+            # tolerance covers it
+            if got.shape != x.shape or got.dtype != dtype \
+                    or not bool(torch.isfinite(got).all()) \
+                    or not torch.allclose(got.float(), exp.float(), rtol=tol,
+                                          atol=tol):
+                fail(f"edge_softmax {name} {dtype}: wrong shape/type, not "
+                     f"finite, or off its plain version beyond {tol}")
+            sm_inputs.append((name, x, seg, n))
+    say(f"[edge_softmax] {len(sm_inputs)} calls at {SOFTMAX_CASES} "
+        f"(float32, bfloat16): finite, within {SOFTMAX_TOL} of the plain "
+        f"version")
+    path_counts["edge_softmax"] = read_counts("edge_softmax (GNN substrate)",
+                                              ("segment_softmax",))
     for name, fn in real.items():
         setattr(ops, name, fn)
     counts = {name: sum(c[name] for c in path_counts.values()) for name in KERNELS}
-    say(f"[paths] kernel launches summed over the three paths: {counts}")
+    say(f"[paths] kernel launches summed over the paths: {counts}")
 
     # ---- kernels on the index's arrays and on the paths' inputs ------- #
     err["sorted_member_mask"] = max(err["sorted_member_mask"], check_parity(
@@ -770,6 +1196,12 @@ def main() -> int:
         [recorded["fingerprint_rows"][1]]))
     say("[parity] on the built index's l2c/class_starts/c2p arrays and on the "
         "paths' largest inputs: bit-exact (tolerance 0)")
+    softmax_err = check_softmax_parity(
+        segment_softmax.segment_normalize, ref.segment_normalize,
+        ref.segment_tables, [(x, seg, n) for _, x, seg, n in sm_inputs])
+    err["segment_softmax"] = max(err["segment_softmax"], *softmax_err.values())
+    say(f"[parity] segment_softmax on the edge_softmax path's inputs: max abs "
+        f"err {softmax_err} (tolerance {SOFTMAX_TOL})")
 
     def member_work(hay, cnt, q):
         lanes, n_hay = hay.shape
@@ -801,9 +1233,19 @@ def main() -> int:
         ops_ = n * k * 2 * 12  # per column and lane: ~12 uint32 operations
         return (bytes_, ops_, None, f"n={n} k={k} salt={salt}")
 
+    def softmax_work(x, seg, mx, den, eps):
+        e, d = x.shape
+        n = mx.shape[0]
+        # scores in, out written, one id a row, the two (N, D) float32 tables
+        bytes_ = 2 * x.numel() * x.element_size() + 4 * e + 2 * 4 * n * d
+        ops_ = 20 * e * d  # subtract, exp, add, divide: ~20 float operations
+        return (bytes_, ops_, None,
+                f"E={e} D={d} N={n} {str(x.dtype).replace('torch.', '')}")
+
     work_of = {"sorted_member_mask": member_work,
                "expand_join_gather": gather_work,
-               "fingerprint_rows": fingerprint_work}
+               "fingerprint_rows": fingerprint_work,
+               "segment_softmax": softmax_work}
 
     def timed(name, args, where):
         bytes_, ops_, lib_fn, shape = work_of[name](*args)
@@ -817,14 +1259,30 @@ def main() -> int:
             f"device ({call_ms:.4f} ms a call, host included), plain "
             f"{plain_ms:.5f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.5f} ms'}, bound "
-            f"{max(t_bytes, t_ops):.5f} ms ({bytes_} bytes, {ops_} int ops)")
+            f"{max(t_bytes, t_ops):.5f} ms ({bytes_} bytes, {ops_} operations)")
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     library_ms=lib_ms)
 
+    softmax_rec = None
+    for name, x, seg, n in sm_inputs:
+        mx, den = ref.segment_tables(x, seg, n)
+        rec = timed("segment_softmax", (x, seg, mx, den, 1e-9), name)
+        whole_dev = device_ms(lambda: ops.segment_softmax(x, seg, n))
+        whole_call = cuda_ms(lambda: ops.segment_softmax(x, seg, n))
+        say(f"[kernels] segment_softmax at {name}: the whole function "
+            f"(reductions + kernel) {whole_dev:.5f} ms on the device, "
+            f"{whole_call:.4f} ms a call")
+        if softmax_rec is None or x.numel() * x.element_size() > softmax_rec[0]:
+            softmax_rec = (x.numel() * x.element_size(), rec)
+        del mx, den
+
     out = []
     for name, (src, replaces) in KERNELS.items():
-        rec = timed(name, recorded[name][1], "the paths' largest call")
+        if name == "segment_softmax":  # its path's largest call, timed above
+            rec = softmax_rec[1]
+        else:
+            rec = timed(name, recorded[name][1], "the paths' largest call")
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name],
                     "max_abs_err": err[name], **rec})

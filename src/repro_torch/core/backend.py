@@ -9,6 +9,9 @@ physical plan; this module executes it on the device:
   * :class:`LocalOps` — the protocol bound to one device's
     ``DeviceIndexArrays``;
   * :func:`run_plan_ops` — the plan walker, written once against it;
+  * :func:`run_union_batch` — the union executable: a mixed-shape batch
+    in one dispatch, each lane interpreting its own postorder program
+    (:func:`plan_program`) over a value stack;
   * :class:`LocalBackend` — the host-facing contract the engine drives
     (numpy in, numpy-or-overflow out).
 
@@ -248,6 +251,148 @@ def run_plan_ops(ops: PlanOps, plan, caps: QueryCaps,
 
 
 # ---------------------------------------------------------------------- #
+# the union executable — one dispatch for a mixed-shape batch
+# ---------------------------------------------------------------------- #
+
+OP_NOP = 0  # padding past the end of a lane's program
+OP_LOOKUP = 1  # push materialize(lookup(start, len))
+OP_JOIN = 2  # pop b, pop a, push a ⋈ b
+OP_CONJ = 3  # pop b, pop a, push a ∩ b
+OP_CONJ_ID = 4  # replace top with its v == u filter
+OP_IDENTITY = 5  # push the identity relation
+
+# per-opcode stack-pointer delta and write offset (relative to sp)
+_OP_DELTA = (0, 1, -1, -1, 0, 1)
+_OP_WRITE = (0, 0, -2, -2, -1, 0)
+
+
+def plan_program(plan):
+    """Compile a plan (or its shape) to the union executable's postorder
+    program.  Returns ``(opcodes, stack_depth)`` — opcodes is a list of
+    ints, LOOKUP steps consume ``lookup_ranges`` rows in exactly the
+    order :func:`run_plan_ops` does (DFS, segments left to right)."""
+    prog: list = []
+    depth = 0
+    max_depth = 0
+
+    def push():
+        nonlocal depth, max_depth
+        depth += 1
+        max_depth = max(max_depth, depth)
+
+    def emit(node):
+        nonlocal depth
+        kind = node[0]
+        if kind == "lookup":
+            nseg = node[1] if isinstance(node[1], int) else len(node[1])
+            prog.append(OP_LOOKUP)
+            push()
+            for _ in range(nseg - 1):
+                prog.append(OP_LOOKUP)
+                push()
+                prog.append(OP_JOIN)
+                depth -= 1
+        elif kind == "identity":
+            prog.append(OP_IDENTITY)
+            push()
+        elif kind == "conj_id":
+            emit(node[1])
+            prog.append(OP_CONJ_ID)
+        elif kind in ("conj", "join"):
+            emit(node[1])
+            emit(node[2])
+            prog.append(OP_CONJ if kind == "conj" else OP_JOIN)
+            depth -= 1
+        else:
+            raise ValueError(kind)
+
+    emit(plan)
+    return prog, max_depth
+
+
+def program_ranges(prog, ranges: np.ndarray, n_steps: int) -> np.ndarray:
+    """Step-align one lane's (n_lookups, 2) ranges to its program: LOOKUP
+    steps carry their (start, len) row, everything else (0, 0), padded to
+    ``n_steps``."""
+    out = np.zeros((n_steps, 2), dtype=np.int32)
+    j = 0
+    for i, op in enumerate(prog):
+        if op == OP_LOOKUP:
+            out[i] = ranges[j]
+            j += 1
+    return out
+
+
+def run_union_batch(ops: PlanOps, caps: QueryCaps, stack_size: int,
+                    opcodes: torch.Tensor, step_ranges: torch.Tensor):
+    """Interpret a mixed-shape batch in one pass over the program steps:
+    ``opcodes`` (B, T) int32 and ``step_ranges`` (B, T, 2) int32 device
+    tensors carry each lane's program as data.  Returns ``ops.finish`` of
+    the (B, pair_cap) result relations and the (B,) sticky overflow
+    flags — the contract of :func:`run_plan_ops`.
+
+    Each step computes EVERY candidate (NOP, LOOKUP through
+    ``lookup_classes`` + ``materialize``, JOIN, CONJ, CONJ_ID, IDENTITY)
+    for every lane and each lane's opcode selects one, as the reference's
+    ``vmap``'d scan does; only the selected candidate's overflow counts,
+    and only for an op that is not NOP.  A NOP lane's lookup runs over
+    range (0, 0): an empty class list, an empty relation.  Nothing reads
+    a device value on the host inside the loop.
+
+    The value stack is two (B, stack_size, pair_cap) int32 tensors:
+    ``2 * B * stack_size * pair_cap * 4`` bytes, 16 MiB per lane and slot
+    at pair_cap 2^21."""
+    lanes, n_steps = opcodes.shape
+    cap = caps.pair_cap
+    dev = opcodes.device
+    lane_ix = torch.arange(lanes, device=dev)
+    slots = torch.arange(stack_size, dtype=R.I32, device=dev)
+    delta = torch.tensor(_OP_DELTA, dtype=R.I32, device=dev)
+    write = torch.tensor(_OP_WRITE, dtype=R.I32, device=dev)
+    no_ovf = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    empty_col = torch.full((lanes, cap), R.SENTINEL, dtype=R.I32, device=dev)
+    v = torch.full((lanes, stack_size, cap), R.SENTINEL, dtype=R.I32, device=dev)
+    u = torch.full_like(v, R.SENTINEL)
+    cnt = torch.zeros((lanes, stack_size), dtype=R.I32, device=dev)
+    sp = torch.zeros(lanes, dtype=R.I32, device=dev)
+    ovf = torch.zeros(lanes, dtype=torch.bool, device=dev)
+
+    def slot(i):
+        i = i.clamp(0, stack_size - 1).long()
+        return R.Relation((v[lane_ix, i], u[lane_ix, i]), cnt[lane_ix, i],
+                          no_ovf)
+
+    for t in range(n_steps):
+        op = opcodes[:, t]
+        start, length = step_ranges[:, t, 0], step_ranges[:, t, 1]
+        top = slot(sp - 1)
+        sec = slot(sp - 2)
+        cands = [
+            R.Relation((empty_col, empty_col),
+                       torch.zeros(lanes, dtype=R.I32, device=dev), no_ovf),
+            ops.materialize(ops.lookup_classes(start, length, caps.class_cap),
+                            cap),
+            ops.join_pairs(sec, top, caps.join_cap, cap),
+            ops.conj_pairs(sec, top),
+            ops.conj_id_pairs(top),
+            ops.identity_pairs(cap, lanes),
+        ]
+        pick = op.long()
+        sel_v = torch.stack([r.cols[0] for r in cands])[pick, lane_ix]
+        sel_u = torch.stack([r.cols[1] for r in cands])[pick, lane_ix]
+        sel_c = torch.stack([r.count.to(R.I32) for r in cands])[pick, lane_ix]
+        sel_o = torch.stack([r.overflow for r in cands])[pick, lane_ix]
+        widx = torch.where(op == OP_NOP, -1, sp + write[pick])
+        mask = slots[None, :] == widx[:, None]
+        v = torch.where(mask[..., None], sel_v[:, None, :], v)
+        u = torch.where(mask[..., None], sel_u[:, None, :], u)
+        cnt = torch.where(mask, sel_c[:, None], cnt)
+        ovf = ovf | (sel_o & (op != OP_NOP))
+        sp = sp + delta[pick]
+    return ops.finish(R.Relation((v[:, 0], u[:, 0]), cnt[:, 0], ovf))
+
+
+# ---------------------------------------------------------------------- #
 # host-facing backend
 # ---------------------------------------------------------------------- #
 
@@ -258,14 +403,15 @@ class LocalBackend:
     ``run``/``run_batch`` report overflow instead of raising: the engine
     owns the double-and-retry capacity ladder."""
 
-    supports_union = False  # the union executable is not ported yet
+    supports_union = True
 
     def __init__(self, arrays: DeviceIndexArrays, n_vertices: int):
         self.ops = LocalOps(arrays, n_vertices)
         self.device = arrays.pair_v.device
 
-    def _ranges(self, ranges: np.ndarray) -> torch.Tensor:
-        host = torch.from_numpy(np.ascontiguousarray(ranges, np.int32))
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """A small int32 host array (lookup ranges, opcodes) on the device."""
+        host = torch.from_numpy(np.ascontiguousarray(host, np.int32))
         if self.device.type == "cuda":
             # a pageable copy would wait for the stream's earlier batches;
             # a pinned one is enqueued behind them and returns at once
@@ -277,7 +423,7 @@ class LocalBackend:
         sorted distinct (n, 2) int32 s-t pairs, or None when the sticky
         overflow flag tripped (the caller retries with doubled caps)."""
         rel, overflow = run_plan_ops(self.ops, shape, caps,
-                                     self._ranges(ranges)[None])
+                                     self._upload(ranges)[None])
         if bool(overflow[0]):
             return None, True
         return R.batch_to_numpy(rel)[0], False
@@ -291,7 +437,23 @@ class LocalBackend:
         """Enqueue a batch on the device and return a handle at once; the
         CUDA stream runs it while the caller plans the next batch."""
         rel, overflow = run_plan_ops(self.ops, shape, caps,
-                                     self._ranges(ranges))
+                                     self._upload(ranges))
+        return ("lanes", rel, overflow)
+
+    def run_union_batch(self, opcodes: np.ndarray, caps: QueryCaps,
+                        stack_size: int, step_ranges: np.ndarray):
+        """Mixed-shape batch via the union executable.  ``opcodes``
+        (batch, T), ``step_ranges`` (batch, T, 2); the result contract of
+        :meth:`run_batch`."""
+        return self.harvest_batch(self.run_union_batch_async(
+            opcodes, caps, stack_size, step_ranges))
+
+    def run_union_batch_async(self, opcodes: np.ndarray, caps: QueryCaps,
+                              stack_size: int, step_ranges: np.ndarray):
+        """Enqueue a union batch and return a handle at once."""
+        rel, overflow = run_union_batch(
+            self.ops, caps, stack_size, self._upload(opcodes),
+            self._upload(step_ranges))
         return ("lanes", rel, overflow)
 
     def harvest_batch(self, handle):

@@ -12,8 +12,9 @@ so queries of one template share one plan shape and batch together.
 The physical algebra lives in ``core.backend``.  The :class:`Engine`
 here owns everything backend-independent: planning, the host-side
 capacity estimator, the overflow retry schedule (the capacity ladder is
-specified in the ``core.backend`` module docstring), and plan-shape
-batching.
+specified in the ``core.backend`` module docstring), plan-shape
+batching, the fusion of straggler buckets into one union-executable
+dispatch, and regular path queries (``execute_rpq``, ``core.rpq``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import dataclasses
 
 import numpy as np
 
-from .backend import LocalBackend, QueryCaps, default_caps
+from .backend import (OP_NOP, LocalBackend, QueryCaps, default_caps,
+                      plan_program, program_ranges)
 from .index import CPQxIndex, resolve_device
 from .optimizer import estimate_plan, optimize_query
 from .query import CPQ, plan_query, plan_lookup_seqs, plan_shape
@@ -53,23 +55,28 @@ class LadderTelemetry:
     ``retry_rungs``  — ladder rungs climbed past the first attempt,
                        summed per query/lane (0 when the estimate fit);
     ``default_jumps``— escalations that hit the jump-to-default rung
-                       (attempt >= 3 — the expensive worst-case dispatch).
+                       (attempt >= 3 — the expensive worst-case dispatch);
+    ``union_lanes``  — lanes served through the union executable.
     """
 
     queries: int = 0
     dispatches: int = 0
     retry_rungs: int = 0
     default_jumps: int = 0
+    union_lanes: int = 0
 
 
 @dataclasses.dataclass
 class _Group:
-    """One dispatch unit of a batch: a same-shape bucket."""
+    """One dispatch unit of a batch: a same-shape bucket, or a union
+    group (``opcodes`` set, ``shape`` None) of mixed-shape stragglers."""
 
     shape: object
     caps: QueryCaps
     members: list
     ranges: np.ndarray
+    opcodes: np.ndarray | None = None
+    stack_size: int = 0
     handle: object = None
 
 
@@ -128,6 +135,13 @@ class Engine:
                                   available=self._available)
         return plan_query(q, self.index.k, available=self._available)
 
+    def predict_cost_ns(self, plan) -> float:
+        """Predicted device nanoseconds of one dispatch of ``plan`` — what
+        the service's SLO-aware shedding prices a request at.  0.0: the
+        port has no calibrated cost table yet (the reference returns 0.0
+        without one too), so SLO shedding is inert."""
+        return 0.0
+
     def estimate_caps(self, ranges: np.ndarray, shape,
                       plan=None) -> QueryCaps:
         """Optimistic per-query capacities from the host index stats.
@@ -171,7 +185,8 @@ class Engine:
         ranges[:, 1] = ranges[:, 1] - ranges[:, 0]  # (start, len)
         return ranges
 
-    def execute(self, q: CPQ, caps: QueryCaps | None = None) -> np.ndarray:
+    def execute(self, q: CPQ, caps: QueryCaps | None = None,
+                max_retries: int = MAX_RETRIES) -> np.ndarray:
         """Evaluate ⟦q⟧_G; returns (n, 2) numpy array of s-t pairs."""
         plan = self.plan(q)
         ranges = self.lookup_ranges(plan)
@@ -179,7 +194,7 @@ class Engine:
         caps = caps or self.estimate_caps(ranges, shape,
                                           plan if self.optimize else None)
         self.telemetry.queries += 1
-        for attempt in range(MAX_RETRIES):
+        for attempt in range(max_retries):
             self.telemetry.dispatches += 1
             rows, overflow = self.backend.run(shape, caps, ranges)
             if not overflow:
@@ -189,6 +204,19 @@ class Engine:
             if attempt >= 3:
                 self.telemetry.default_jumps += 1
         raise RuntimeError("query overflow not resolved after retries")
+
+    def execute_rpq(self, q, srcs=None, dsts=None,
+                    n_labels: int | None = None, info=None) -> np.ndarray:
+        """Evaluate a regular path query (:mod:`repro_torch.core.rpq` AST)
+        as an automaton fixpoint of per-sequence lookups; returns (n, 2)
+        s-t pairs like :meth:`execute`.  Every device dispatch inside the
+        fixpoint is an ordinary :meth:`execute_batch` round.  ``srcs`` /
+        ``dsts`` pin the endpoints (the Cypher ``WHERE`` lowering);
+        ``info`` (an ``rpq.FixpointInfo``) captures iteration telemetry."""
+        from .rpq import evaluate  # engine <- rpq is one-way at runtime
+
+        return evaluate(self, q, srcs=srcs, dsts=dsts, n_labels=n_labels,
+                        info=info)
 
     def _escalate(self, caps: QueryCaps, attempt: int) -> QueryCaps:
         """Overflow-retry schedule: double, and after three failed
@@ -204,25 +232,37 @@ class Engine:
         return caps
 
     def execute_batch(self, queries, caps: QueryCaps | None = None,
-                      min_bucket: int = 4) -> list:
+                      max_retries: int = MAX_RETRIES, plans: list | None = None,
+                      min_bucket: int = 4, union: bool = False) -> list:
         """Evaluate many queries; returns one (n, 2) array per query, in
         input order.  Equivalent to ``dispatch_batch`` + ``harvest_batch``
         back to back."""
-        return self.harvest_batch(
-            self.dispatch_batch(queries, caps=caps, min_bucket=min_bucket))
+        handle = self.dispatch_batch(queries, caps=caps, plans=plans,
+                                     min_bucket=min_bucket, union=union)
+        return self.harvest_batch(handle, max_retries=max_retries)
 
     def dispatch_batch(self, queries, caps: QueryCaps | None = None,
-                       min_bucket: int = 4) -> BatchHandle:
+                       plans: list | None = None, min_bucket: int = 4,
+                       union: bool = False) -> BatchHandle:
         """Plan, bucket and asynchronously dispatch a batch; returns a
         :class:`BatchHandle` the caller settles with ``harvest_batch``.
 
         Queries are grouped by (plan *shape*, estimated caps); buckets
         smaller than ``min_bucket`` merge upward into the next-larger caps
         rung.  Each group's lookup ranges stack into a (batch, n_lookups,
-        2) array evaluated in one dispatch, one lane per query."""
+        2) array evaluated in one dispatch, one lane per query.
+
+        With ``union=True``, the mixed-shape straggler buckets still
+        smaller than ``min_bucket`` after same-shape merging fuse into one
+        union-executable group (their per-lane programs stream as data)
+        instead of one dispatch per leftover shape.
+
+        ``plans`` lets a caller with a plan cache (the service layer)
+        skip re-planning; it must align with ``queries``."""
         if not queries:
             return BatchHandle(results=[], groups=[])
-        plans = [self.plan(q) for q in queries]
+        if plans is None:
+            plans = [self.plan(q) for q in queries]
         all_ranges = [self.lookup_ranges(p) for p in plans]
 
         shape_groups: dict = {}
@@ -261,22 +301,69 @@ class Engine:
 
         groups = [_Group(shape, c, m, np.stack([all_ranges[i] for i in m]))
                   for shape, c, m in work]
+        if union and self.backend.supports_union:
+            groups = self._fuse_stragglers(groups, all_ranges, min_bucket)
+
         self.telemetry.queries += len(queries)
         for g in groups:
             self.telemetry.dispatches += 1
-            g.handle = self.backend.run_batch_async(g.shape, g.caps, g.ranges)
+            g.handle = self._dispatch_group(g)
         return BatchHandle(results=[None] * len(queries), groups=groups)
 
-    def harvest_batch(self, handle: BatchHandle) -> list:
+    def _fuse_stragglers(self, groups: list, all_ranges: list,
+                         min_bucket: int) -> list:
+        """Fuse the sub-``min_bucket`` shape buckets into one union group
+        (caps = elementwise max, programs NOP-padded to the longest)."""
+        stragglers = [g for g in groups if len(g.members) < min_bucket]
+        if len(stragglers) < 2:
+            return groups
+        kept = [g for g in groups if len(g.members) >= min_bucket]
+        programs = {}
+        members, progs, ucaps = [], [], None
+        for g in stragglers:
+            if g.shape not in programs:
+                programs[g.shape] = plan_program(g.shape)
+            for i in g.members:
+                members.append(i)
+                progs.append(programs[g.shape])
+            ucaps = g.caps if ucaps is None else QueryCaps(
+                max(ucaps.class_cap, g.caps.class_cap),
+                max(ucaps.pair_cap, g.caps.pair_cap),
+                max(ucaps.join_cap, g.caps.join_cap))
+        n_steps = max(len(p) for p, _ in progs)
+        stack_size = max(2, max(d for _, d in progs))
+        opcodes = np.full((len(members), n_steps), OP_NOP, np.int32)
+        step_ranges = np.zeros((len(members), n_steps, 2), np.int32)
+        for lane, (i, (prog, _)) in enumerate(zip(members, progs)):
+            opcodes[lane, : len(prog)] = prog
+            step_ranges[lane] = program_ranges(prog, all_ranges[i], n_steps)
+        self.telemetry.union_lanes += len(members)
+        kept.append(_Group(None, ucaps, members, step_ranges,
+                           opcodes=opcodes, stack_size=stack_size))
+        return kept
+
+    def _dispatch_group(self, g: _Group):
+        if g.opcodes is not None:
+            return self.backend.run_union_batch_async(
+                g.opcodes, g.caps, g.stack_size, g.ranges)
+        return self.backend.run_batch_async(g.shape, g.caps, g.ranges)
+
+    def harvest_batch(self, handle: BatchHandle,
+                      max_retries: int = MAX_RETRIES) -> list:
         """Block on a dispatched batch and drive the overflow ladder.
 
         Overflow is tracked per lane: only the queries whose own sticky
-        flag tripped are retried (synchronously), at doubled capacities.
-        ``retry_rungs`` and ``default_jumps`` both count per lane."""
+        flag tripped are retried (synchronously), at doubled capacities,
+        through the executable that served them (a union group retries
+        through the union executable).  ``retry_rungs`` and
+        ``default_jumps`` both count per lane."""
         results = handle.results
         for g in handle.groups:
+            if max_retries <= 0:
+                raise RuntimeError("query overflow not resolved after retries")
             pending = np.asarray(g.members, np.int64)
             ranges = g.ranges
+            opcodes = g.opcodes
             grp_caps = g.caps
             rows, overflow = self.backend.harvest_batch(g.handle)
             attempt = 0
@@ -292,12 +379,17 @@ class Engine:
                     self.telemetry.default_jumps += int(overflow.sum())
                 grp_caps = self._escalate(grp_caps, attempt)
                 attempt += 1
-                if attempt >= MAX_RETRIES:
+                if attempt >= max_retries:
                     raise RuntimeError(
                         "query overflow not resolved after retries")
                 pending = pending[overflow]
                 ranges = ranges[overflow]
                 self.telemetry.dispatches += 1
-                rows, overflow = self.backend.run_batch(g.shape, grp_caps,
-                                                        ranges)
+                if opcodes is not None:
+                    opcodes = opcodes[overflow]
+                    rows, overflow = self.backend.run_union_batch(
+                        opcodes, grp_caps, g.stack_size, ranges)
+                else:
+                    rows, overflow = self.backend.run_batch(
+                        g.shape, grp_caps, ranges)
         return results

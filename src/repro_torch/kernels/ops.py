@@ -5,7 +5,8 @@ failure raises.  CPU tensors go to the plain PyTorch version in
 ``ref.py``.  There is no other route: no size ceiling and no switch.
 
 The two query-path kernels take a leading lane dimension (one lane per
-query of a batch); ``fingerprint_rows`` takes 1-D build columns."""
+query of a batch); ``fingerprint_rows`` takes 1-D build columns;
+``segment_softmax`` takes (E, D) scores of any E (no block padding)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from . import expand_join as _ej
 from . import fingerprint as _fp
 from . import ref
+from . import segment_softmax as _ss
 from . import sorted_intersect as _si
 
 
@@ -44,3 +46,16 @@ def fingerprint_rows(cols, salt: int = 0) -> tuple:
     if cols[0].is_cuda:
         return _fp.fingerprint_rows(tuple(c.contiguous() for c in cols), salt)
     return ref.fingerprint_rows(cols, salt)
+
+
+def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int, eps: float = 1e-9) -> torch.Tensor:
+    """Per-segment softmax over axis 0 of (E, D) float32 or bfloat16
+    scores, in their dtype.  The segment max and sum are PyTorch
+    reductions (``ref.segment_tables``); the normalize pass is the kernel."""
+    mx, den = ref.segment_tables(scores, segment_ids, num_segments)
+    if scores.is_cuda:
+        return _ss.segment_normalize(
+            scores.contiguous(), segment_ids.to(torch.int32).contiguous(),
+            mx, den.contiguous(), eps)
+    return ref.segment_normalize(scores, segment_ids, mx, den, eps)

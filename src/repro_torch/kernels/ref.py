@@ -1,10 +1,21 @@
-"""Plain PyTorch versions of the three CUDA kernels — what ``ops`` runs
+"""Plain PyTorch versions of the four CUDA kernels — what ``ops`` runs
 for tensors on the CPU, and what the kernels are held against on the card.
 
 The two query-path kernels take a leading lane dimension: per-lane inputs
 are (B, n), per-lane scalars (B,), and the shared build-side columns of
 ``expand_join_gather`` are 1-D.  ``fingerprint_rows`` is the substrate's
-own int64-lane hash."""
+own int64-lane hash.
+
+``segment_softmax`` is the reference's ``ref.segment_softmax``: the two
+segment reductions (``segment_tables``) and the normalize pass that the
+CUDA kernel fuses (``segment_normalize``).  The reductions accumulate in
+float32 whatever the scores' dtype (the reference runs them in the
+scores' dtype; the max is exact either way, the bfloat16 sum is not), and
+the normalize pass computes in float32 and rounds once to the scores'
+dtype.  Segment ids outside ``[0, N)``, negative ones included, take no
+part in either reduction, as ``jax.ops.segment_max``/``segment_sum`` drop
+them; the two gathers clip them into ``[0, N)``, as the reference does.
+An empty segment's max is -inf and becomes 0, its sum 0."""
 
 from __future__ import annotations
 
@@ -49,3 +60,43 @@ def expand_join_gather(ends, lo, a_payload, b_v, b_u, total,
         torch.where(ok, b_u[bj], SENTINEL),
         torch.where(ok, torch.gather(a_payload, -1, aic), SENTINEL),
     )
+
+
+def segment_tables(scores: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int):
+    """The (N, D) float32 segment max (0 for an empty segment) and sum of
+    ``exp(scores - max)`` over rows with ids in ``[0, N)``.  Ids outside
+    go to a spare row N that is cut off, so nothing syncs with the host."""
+    if num_segments < 1:
+        raise ValueError("segment_softmax needs num_segments >= 1")
+    n, d = num_segments, scores.shape[1]
+    seg = segment_ids.long()
+    spare = torch.where((seg >= 0) & (seg < n), seg, n)
+    x = scores.float()
+    mx = torch.full((n + 1, d), float("-inf"), dtype=torch.float32,
+                    device=scores.device)
+    mx.scatter_reduce_(0, spare[:, None].expand(-1, d), x, "amax",
+                       include_self=False)
+    mx = torch.where(torch.isfinite(mx[:n]), mx[:n], 0.0)
+    ex = torch.exp(x - mx[seg.clamp(0, n - 1)])
+    den = torch.zeros((n + 1, d), dtype=torch.float32, device=scores.device)
+    den.index_add_(0, spare, ex)
+    return mx, den[:n]
+
+
+def segment_normalize(scores: torch.Tensor, segment_ids: torch.Tensor,
+                      mx: torch.Tensor, den: torch.Tensor,
+                      eps: float = 1e-9) -> torch.Tensor:
+    """The normalize pass: ``exp(scores - mx[s]) / (den[s] + eps)`` with
+    ``s`` the id clipped to ``[0, N)``, in float32, rounded to the scores'
+    dtype."""
+    s = segment_ids.long().clamp(0, mx.shape[0] - 1)
+    out = torch.exp(scores.float() - mx[s]) / (den[s] + eps)
+    return out.to(scores.dtype)
+
+
+def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int, eps: float = 1e-9) -> torch.Tensor:
+    """Per-segment softmax over axis 0 of (E, D) scores."""
+    mx, den = segment_tables(scores, segment_ids, num_segments)
+    return segment_normalize(scores, segment_ids, mx, den, eps)

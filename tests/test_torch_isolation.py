@@ -52,7 +52,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
     for m in ("repro_torch.core.interest", "repro_torch.core.maintenance",
-              "repro_torch.core.oracle", "repro_torch.kernels.fingerprint"):
+              "repro_torch.core.oracle", "repro_torch.kernels.fingerprint",
+              "repro_torch.core.service", "repro_torch.core.rpq",
+              "repro_torch.core.cypher", "repro_torch.core.workload",
+              "repro_torch.kernels.segment_softmax", "repro_torch.models.gnn"):
         assert m in mods
 
 

@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the port's three kernels
+"""The plain PyTorch versions of the port's four kernels
 (``repro_torch.kernels.ref``, what ``ops`` runs for CPU tensors) held bit
 for bit against the JAX package's ``kernels.ops`` (Pallas in interpret
 mode on the CPU), lane by lane, on the reference kernel tests' shapes.
@@ -10,10 +10,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.kernels import expand_join, fingerprint, ops, sorted_intersect  # noqa: E402
+from repro_torch.kernels import expand_join, fingerprint, ops, ref, sorted_intersect  # noqa: E402
+from repro_torch.kernels import segment_softmax  # noqa: E402
+from repro_torch.models.gnn import edge_softmax  # noqa: E402
 
 SENTINEL = 2**31 - 1
 INT_MIN = -(2**31)
@@ -163,3 +166,89 @@ def test_fingerprint_wrapper_refuses_column_counts_it_cannot_take(n_cols):
     with pytest.raises(ValueError, match="columns"):
         fingerprint.fingerprint_rows(cols)
 
+
+
+# ---- segment_softmax: float32 to 1e-6, bfloat16 to 2e-2 (the reference
+# test's tolerances; the port sums in float32, the reference in bfloat16)
+
+_SOFTMAX_DTYPES = {"float32": (torch.float32, jnp.float32, 1e-6),
+                   "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def _assert_softmax_equals_jax(scores, seg, n, dtype):
+    """The port's ``ops.segment_softmax`` and ``edge_softmax`` against the
+    reference's ``kernels.ops.segment_softmax`` (Pallas in interpret mode
+    where E divides by 512, its ``ref`` otherwise) on the same values."""
+    t_dtype, j_dtype, tol = _SOFTMAX_DTYPES[dtype]
+    j_scores = jnp.asarray(scores, j_dtype)
+    exp = np.asarray(jops.segment_softmax(j_scores, jnp.asarray(seg), n),
+                     np.float32)
+    t_scores = torch.from_numpy(np.array(j_scores, np.float32)).to(t_dtype)
+    for got in (ops.segment_softmax(t_scores, torch.from_numpy(seg), n),
+                edge_softmax(t_scores, torch.from_numpy(seg), n)):
+        assert got.dtype == t_dtype and got.shape == scores.shape
+        np.testing.assert_allclose(got.float().numpy(), exp, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(_SOFTMAX_DTYPES))
+@pytest.mark.parametrize("e,d,n", [(512, 1, 16), (1024, 8, 64), (2048, 4, 100)])
+def test_segment_softmax(dtype, e, d, n):
+    """The reference's ``TestSegmentSoftmax`` shapes."""
+    rng = np.random.default_rng(e + d + n)
+    scores = rng.normal(0, 3, (e, d)).astype(np.float32)
+    seg = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    _assert_softmax_equals_jax(scores, seg, n, dtype)
+
+
+def _softmax_case(name, rng):
+    if name == "empty_segments":  # ids use only every third segment
+        return rng.normal(0, 3, (512, 4)), np.sort(rng.integers(0, 20, 512)) * 3, 64
+    if name == "out_of_range":  # negative and >= N ids, some clipped onto
+        seg = rng.integers(-5, 40, 1024)  # the empty segments 0 and N-1
+        seg[(seg == 0) | (seg == 31)] = 7
+        return rng.normal(0, 3, (1024, 2)), seg, 32
+    if name == "unsorted":
+        return rng.normal(0, 3, (1024, 3)), rng.integers(0, 50, 1024), 50
+    if name == "ragged":  # E not a multiple of 512: the reference's ref path
+        return rng.normal(0, 3, (1000, 5)), rng.integers(0, 30, 1000), 30
+    if name == "one_edge":
+        return rng.normal(0, 3, (1, 1)), np.array([0]), 1
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("dtype", sorted(_SOFTMAX_DTYPES))
+@pytest.mark.parametrize("case", ["empty_segments", "out_of_range", "unsorted",
+                                  "ragged", "one_edge"])
+def test_segment_softmax_edge_cases(dtype, case):
+    scores, seg, n = _softmax_case(case, np.random.default_rng(11))
+    _assert_softmax_equals_jax(scores.astype(np.float32), seg.astype(np.int32),
+                               n, dtype)
+
+
+def test_segment_tables_drop_out_of_range_ids():
+    """``jax.ops.segment_sum``/``segment_max`` drop ids outside [0, N),
+    negative ids included; the port's reductions do the same."""
+    seg = np.array([-1, 0, 1, 5], np.int32)
+    vals = np.array([[1.0], [2.0], [3.0], [4.0]], np.float32)
+    np.testing.assert_array_equal(
+        np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), 3)),
+        [[2.0], [3.0], [0.0]])
+    mx, den = ref.segment_tables(torch.from_numpy(vals), torch.from_numpy(seg), 3)
+    np.testing.assert_array_equal(mx.numpy(), [[2.0], [3.0], [0.0]])  # empty: 0
+    np.testing.assert_array_equal(den.numpy(), [[1.0], [1.0], [0.0]])  # exp(0)
+
+
+def test_segment_softmax_cpu_takes_the_plain_version():
+    before = segment_softmax.launches
+    x = torch.zeros(4, 2)
+    out = ops.segment_softmax(x, torch.tensor([0, 0, 1, 1]), 2)
+    torch.testing.assert_close(out, torch.full((4, 2), 0.5))
+    assert segment_softmax.launches == before
+
+
+def test_segment_softmax_wrapper_refuses_cpu_tensors():
+    x = torch.zeros(4, 2)
+    seg = torch.zeros(4, dtype=torch.int32)
+    table = torch.zeros(1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_softmax.segment_normalize(x, seg, table, table)
