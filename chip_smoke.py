@@ -9,9 +9,14 @@ Phases, each printed on its own lines:
 3. parity      — each CUDA kernel against its plain PyTorch version on the
                  card: the three integer kernels bit for bit (the CPU tests'
                  shapes, SENTINEL, -1, INT_MIN and empty cases, several
-                 lanes), segment_softmax within 1e-6 (float32) and 2e-2
-                 (bfloat16); small CPQx and iaCPQx builds (gmark_citation(500))
-                 held bit for bit against the CPU;
+                 lanes; sorted_member_mask on both sides of its shared-memory
+                 budget, up to a haystack of 131 072 ids), segment_softmax on
+                 the packed (N, D, 2) table bit for bit in float32 and
+                 bfloat16 (each of its three kernels, a misaligned base and
+                 a ragged E at D = 1 included), the packed table held to two
+                 separate reductions;
+                 small CPQx and iaCPQx builds (gmark_citation(500)) held bit
+                 for bit against the CPU;
 4. index       — CPQx for gmark_citation(20_000, avg_degree=6, seed=3) at k=2
                  on the card;
 5. queries     — the 12 templates with seeded labels through Engine.execute and
@@ -95,7 +100,7 @@ SOFTMAX_CASES = [
     ("ogb_products", 61_859_140, 1, 2_449_029),
     ("bench_kernels", 16_384, 8, 1_024),
 ]
-SOFTMAX_TOL = {"float32": 1e-6, "bfloat16": 2e-2}  # rtol = atol
+SOFTMAX_TOL = {"float32": 1e-6, "bfloat16": 2e-2}  # rtol = atol, phase 10 only
 TEMPLATES = ["C2", "C4", "C2i", "T", "Ti", "S", "Si", "TT", "St",
              "TC", "SC", "ST"]
 KERNELS = {
@@ -370,6 +375,35 @@ def member_cases(rng, dev):
                   for x in c) for c in out]
 
 
+def budget_cases(rng, dev):
+    """(hay, count, queries) on the card on both sides of
+    sorted_intersect.SHARED_BUDGET, each with the path launch_plan must
+    give it: rows that start off 16 bytes (1 001 ids), 4 096 ids, the
+    largest haystack that is staged (6 144 ids, 24 KB), the smallest that
+    is searched in device memory, 12 288 ids (the most the kernel could
+    stage) and 131 072 ids; full and partial counts, 5 % SENTINEL
+    queries, a query block per 256 queries."""
+    import torch
+
+    S = 2**31 - 1
+    out = []
+    for lanes, n_hay, n_q, path in ((3, 1_001, 777, "shared"),
+                                    (16, 4_096, 4_096, "shared"),
+                                    (16, 6_144, 4_096, "shared"),
+                                    (16, 6_145, 4_096, "global"),
+                                    (16, 12_288, 4_096, "global"),
+                                    (2, 131_072, 8_192, "global")):
+        hay = np.sort(np.stack([rng.choice(4 * n_hay, n_hay, replace=False)
+                                for _ in range(lanes)]), axis=1)
+        cnt = np.full(lanes, n_hay)
+        cnt[1:] = rng.integers(0, n_hay + 1, lanes - 1)
+        q = rng.integers(0, 4 * n_hay, (lanes, n_q))
+        q[rng.random((lanes, n_q)) < 0.05] = S
+        out.append((path, tuple(torch.as_tensor(x, dtype=torch.int32, device=dev)
+                                for x in (hay, cnt, q))))
+    return out
+
+
 def join_cases(rng, dev):
     """(ends, lo, a_payload, b_v, b_u, total, out_capacity) on the card:
     random CSR joins against a shared sorted build side, empty totals,
@@ -579,55 +613,95 @@ def pin_candidates(g, parsed, n_labels: int) -> list:
 
 def softmax_cases(rng, dev):
     """(scores, ids, N) on the card, float32 and bfloat16: the CPU tests'
-    shapes, empty segments, negative and >= N ids, unsorted ids, one edge
-    and a ragged E."""
+    shapes, empty segments, negative and >= N ids, unsorted ids, one edge,
+    ragged E.  The kernel picks one of three by E * D against one wave of
+    resident threads (132 SMs x 2048 = 270 336 on the H100), and by D:
+    below the wave the one-element kernel (every case of up to 8 192
+    elements, 4 099 x 1 misaligned included); above it at D = 1 the vector
+    kernel, on its vector path with a ragged tail (1 000 003 ids, not a
+    multiple of 4 or 8) and on its scalar path when scores and ids start
+    off 16 bytes (a slice from row 1); above it at D > 1 the row-tile
+    kernel: D = 2 (512-row tiles, the shared array full, a stride of whole
+    rows), D = 8 (whole-row stride), D = 70, D = 300 (a stride within one
+    row) and D = 1 100 (one row a tile), each with a ragged last tile."""
     import torch
 
     out = []
     shapes = [(512, 1, 16, True), (1024, 8, 64, True), (2048, 4, 100, True),
               (512, 4, 64, "empty"), (1024, 2, 32, "out_of_range"),
               (1024, 3, 50, False), (1000, 5, 30, False), (1, 1, 1, True),
-              (70_001, 70, 4_096, False)]
+              (70_001, 70, 4_096, False), (7, 1, 3, False),
+              (1_000_003, 1, 5_000, False), (1_000_003, 1, 5_000, "misaligned"),
+              (4_099, 1, 64, "misaligned"), (200_003, 2, 50_000, False),
+              (40_001, 8, 4_096, False), (1_001, 300, 64, False),
+              (300, 1_100, 16, False)]
     for e, d, n, kind in shapes:
-        x = rng.normal(0, 3, (e, d)).astype(np.float32)
+        skip = 1 if kind == "misaligned" else 0
+        x = rng.normal(0, 3, (e + skip, d)).astype(np.float32)
         if kind == "empty":  # only every third segment is used
             seg = np.sort(rng.integers(0, n // 3, e)) * 3
         elif kind == "out_of_range":
             seg = rng.integers(-5, n + 8, e)
         else:
-            seg = rng.integers(0, n, e)
+            seg = rng.integers(0, n, e + skip)
             if kind is True:
                 seg = np.sort(seg)
         for dtype in (torch.float32, torch.bfloat16):
-            out.append((torch.as_tensor(x, device=dev).to(dtype),
-                        torch.as_tensor(seg.astype(np.int32), device=dev), n))
+            out.append((torch.as_tensor(x, device=dev).to(dtype)[skip:],
+                        torch.as_tensor(seg.astype(np.int32), device=dev)[skip:],
+                        n))
     return out
 
 
+def separate_tables(x, seg, n):
+    """The segment max and sum as two separate contiguous (N, D) float32
+    reductions: what ref.segment_tables packs into one table."""
+    import torch
+
+    d = x.shape[1]
+    idx = seg.long()
+    spare = torch.where((idx >= 0) & (idx < n), idx, n)
+    mx = torch.full((n + 1, d), float("-inf"), device=x.device)
+    mx.scatter_reduce_(0, spare[:, None].expand(-1, d), x.float(), "amax",
+                       include_self=False)
+    mx = torch.where(torch.isfinite(mx[:n]), mx[:n], 0.0)
+    den = torch.zeros((n + 1, d), device=x.device)
+    den.index_add_(0, spare, torch.exp(x.float() - mx[idx.clamp(0, n - 1)]))
+    return mx, den[:n]
+
+
 def check_softmax_parity(kernel, plain, tables, cases) -> dict:
-    """The kernel against its plain version on the same (N, D) tables, per
-    dtype; returns {dtype: max abs err}.  The tables' sums come from
-    index_add_'s atomics, whose order changes from run to run, so both
-    sides read one table and the run-to-run difference of the sums does
-    not enter the comparison."""
+    """The kernel against its plain version on the same packed (N, D, 2)
+    table, bit for bit in both dtypes; returns {dtype: max abs err}.  The
+    table's sums come from index_add_'s atomics, whose order changes from
+    run to run, so both sides read one table and the run-to-run difference
+    of the sums does not enter the comparison.  The packed table itself is
+    held to two separate reductions: the max exactly, the sum within
+    1e-6."""
     import torch
 
     worst = {}
     for x, seg, n in cases:
-        mx, den = tables(x, seg, n)
-        got = kernel(x, seg, mx, den)
-        exp = plain(x, seg, mx, den)
+        table = tables(x, seg, n)
+        mx, den = separate_tables(x, seg, n)
+        if table.shape != (n, x.shape[1], 2) or not table.is_contiguous() \
+                or not torch.equal(table[..., 0], mx) \
+                or not torch.allclose(table[..., 1], den, rtol=1e-6, atol=1e-6):
+            fail(f"segment_tables E={x.shape[0]} D={x.shape[1]} N={n}: the "
+                 "packed table differs from the two separate reductions")
+        got = kernel(x, seg, table)
+        exp = plain(x, seg, table)
         torch.cuda.synchronize()
         name = str(x.dtype).replace("torch.", "")
         if got.shape != exp.shape or got.dtype != exp.dtype:
             fail(f"segment_softmax: shape/type {tuple(got.shape)} {got.dtype} "
                  f"vs {tuple(exp.shape)} {exp.dtype}")
-        tol = SOFTMAX_TOL[name]
         g32, e32 = got.float(), exp.float()
-        if not torch.allclose(g32, e32, rtol=tol, atol=tol):
-            fail(f"segment_softmax {name} E={x.shape[0]} D={x.shape[1]} N={n}: "
-                 f"kernel disagrees with its plain version beyond {tol}")
         err = float((g32 - e32).abs().max()) if x.numel() else 0.0
+        if not torch.equal(got, exp):
+            fail(f"segment_softmax {name} E={x.shape[0]} D={x.shape[1]} N={n}: "
+                 f"kernel differs from its plain version on the same table "
+                 f"(max abs err {err})")
         worst[name] = max(worst.get(name, 0.0), err)
     return worst
 
@@ -707,14 +781,29 @@ def main() -> int:
     say("[parity] test shapes, SENTINEL, -1, INT_MIN, empty and multi-lane "
         "cases: the three integer kernels equal their plain versions "
         "(tolerance 0: integer outputs, bit-exact)")
+    member_budget = budget_cases(rng, dev)
+    for path, (hay, cnt, q) in member_budget:
+        if sorted_intersect.launch_plan(hay.shape[1])[0] != path:
+            fail(f"sorted_member_mask: a haystack of {hay.shape[1]} ids should "
+                 f"take the {path} path, the plan says "
+                 f"{sorted_intersect.launch_plan(hay.shape[1])}")
+    err["sorted_member_mask"] = max(err["sorted_member_mask"], check_parity(
+        "sorted_member_mask", sorted_intersect.sorted_member_mask,
+        ref.sorted_member_mask, [c for _, c in member_budget]))
+    say("[parity] sorted_member_mask on both sides of its shared-memory budget "
+        f"({sorted_intersect.SHARED_BUDGET} bytes): "
+        + ", ".join(f"B={h.shape[0]} n_hay={h.shape[1]} n_q={q.shape[1]} "
+                    f"{path}" for path, (h, _, q) in member_budget)
+        + ": bit-exact (tolerance 0)")
     softmax_err = check_softmax_parity(
         segment_softmax.segment_normalize, ref.segment_normalize,
         ref.segment_tables, softmax_cases(rng, dev))
     err["segment_softmax"] = max(softmax_err.values())
     say(f"[parity] segment_softmax on the test shapes, empty segments, negative "
-        f"and >= N ids, unsorted ids, E=1, ragged E: kernel within rtol=atol="
-        f"{SOFTMAX_TOL} of its plain version on the same tables; max abs err "
-        f"{softmax_err}")
+        f"and >= N ids, unsorted ids, E=1, ragged E, misaligned D=1 bases, "
+        f"row tiles at D = 2, 8, 70, 300 and 1 100: packed table equal to the "
+        f"separate reductions; kernel bit-exact against its plain version on "
+        f"the same table (tolerance 0); max abs err {softmax_err}")
 
     # small builds on the card held bit for bit against the CPU builds
     g_small = gmark_citation(500, avg_degree=6, seed=SEED)
@@ -1200,8 +1289,8 @@ def main() -> int:
         segment_softmax.segment_normalize, ref.segment_normalize,
         ref.segment_tables, [(x, seg, n) for _, x, seg, n in sm_inputs])
     err["segment_softmax"] = max(err["segment_softmax"], *softmax_err.values())
-    say(f"[parity] segment_softmax on the edge_softmax path's inputs: max abs "
-        f"err {softmax_err} (tolerance {SOFTMAX_TOL})")
+    say(f"[parity] segment_softmax on the edge_softmax path's inputs, on the "
+        f"same table: bit-exact (tolerance 0), max abs err {softmax_err}")
 
     def member_work(hay, cnt, q):
         lanes, n_hay = hay.shape
@@ -1233,10 +1322,10 @@ def main() -> int:
         ops_ = n * k * 2 * 12  # per column and lane: ~12 uint32 operations
         return (bytes_, ops_, None, f"n={n} k={k} salt={salt}")
 
-    def softmax_work(x, seg, mx, den, eps):
+    def softmax_work(x, seg, table, eps):
         e, d = x.shape
-        n = mx.shape[0]
-        # scores in, out written, one id a row, the two (N, D) float32 tables
+        n = table.shape[0]
+        # scores in, out written, one id a row, the (N, D, 2) float32 table
         bytes_ = 2 * x.numel() * x.element_size() + 4 * e + 2 * 4 * n * d
         ops_ = 20 * e * d  # subtract, exp, add, divide: ~20 float operations
         return (bytes_, ops_, None,
@@ -1266,16 +1355,19 @@ def main() -> int:
 
     softmax_rec = None
     for name, x, seg, n in sm_inputs:
-        mx, den = ref.segment_tables(x, seg, n)
-        rec = timed("segment_softmax", (x, seg, mx, den, 1e-9), name)
+        table = ref.segment_tables(x, seg, n)
+        rec = timed("segment_softmax", (x, seg, table, 1e-9), name)
         whole_dev = device_ms(lambda: ops.segment_softmax(x, seg, n))
         whole_call = cuda_ms(lambda: ops.segment_softmax(x, seg, n))
+        tables_dev = device_ms(lambda: ref.segment_tables(x, seg, n))
         say(f"[kernels] segment_softmax at {name}: the whole function "
-            f"(reductions + kernel) {whole_dev:.5f} ms on the device, "
-            f"{whole_call:.4f} ms a call")
+            f"(reductions into the packed table + kernel) {whole_dev:.5f} ms "
+            f"on the device, {whole_call:.4f} ms a call; the reductions alone "
+            f"{tables_dev:.5f} ms (they write the packed table in place: no "
+            f"packing pass)")
         if softmax_rec is None or x.numel() * x.element_size() > softmax_rec[0]:
             softmax_rec = (x.numel() * x.element_size(), rec)
-        del mx, den
+        del table
 
     out = []
     for name, (src, replaces) in KERNELS.items():
@@ -1288,6 +1380,25 @@ def main() -> int:
                     "max_abs_err": err[name], **rec})
     timed("sorted_member_mask", index_member_cases(index, dev, rng)[0],
           "the index's 16 largest class lists")
+    for where, (hay, cnt, q) in [("the paths' largest call",
+                                  recorded["sorted_member_mask"][1])] + [
+            (f"the budget's {path} side", c) for path, c in member_budget[1:]]:
+        if where != "the paths' largest call":
+            timed("sorted_member_mask", (hay, cnt, q), where)
+        both = {}
+        for path, nbytes in (("staged", 4 * hay.shape[1]), ("in place", 0)):
+            if nbytes <= 48 * 1024:  # the most the kernel stages
+                flags = torch.empty_like(q)
+                both[path] = device_ms(lambda: sorted_intersect.launch(
+                    hay, cnt, q, flags, nbytes))
+                if not torch.equal(flags, ref.sorted_member_mask(hay, cnt, q)):
+                    fail(f"sorted_member_mask {path} at {where}: differs from "
+                         "its plain version")
+        say(f"[kernels] sorted_member_mask at {where} B={hay.shape[0]} "
+            f"n_hay={hay.shape[1]} n_q={q.shape[1]}, both paths of the kernel "
+            f"on the same input (the plan takes "
+            f"{sorted_intersect.launch_plan(hay.shape[1])[0]}): "
+            + ", ".join(f"{k} {v:.5f} ms" for k, v in both.items()))
     timed("expand_join_gather", index_join_cases(index, dev)[0],
           "the index's 16 largest class lists")
 

@@ -52,10 +52,11 @@ def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int, eps: float = 1e-9) -> torch.Tensor:
     """Per-segment softmax over axis 0 of (E, D) float32 or bfloat16
     scores, in their dtype.  The segment max and sum are PyTorch
-    reductions (``ref.segment_tables``); the normalize pass is the kernel."""
-    mx, den = ref.segment_tables(scores, segment_ids, num_segments)
+    reductions into one packed table (``ref.segment_tables``); the
+    normalize pass is the kernel."""
+    table = ref.segment_tables(scores, segment_ids, num_segments)
     if scores.is_cuda:
         return _ss.segment_normalize(
             scores.contiguous(), segment_ids.to(torch.int32).contiguous(),
-            mx, den.contiguous(), eps)
-    return ref.segment_normalize(scores, segment_ids, mx, den, eps)
+            table, eps)
+    return ref.segment_normalize(scores, segment_ids, table, eps)

@@ -7,8 +7,9 @@ are (B, n), per-lane scalars (B,), and the shared build-side columns of
 own int64-lane hash.
 
 ``segment_softmax`` is the reference's ``ref.segment_softmax``: the two
-segment reductions (``segment_tables``) and the normalize pass that the
-CUDA kernel fuses (``segment_normalize``).  The reductions accumulate in
+segment reductions (``segment_tables``, which fill one packed (N, D, 2)
+table, max beside sum) and the normalize pass that the CUDA kernel fuses
+(``segment_normalize``).  The reductions accumulate in
 float32 whatever the scores' dtype (the reference runs them in the
 scores' dtype; the max is exact either way, the bfloat16 sum is not), and
 the normalize pass computes in float32 and rounds once to the scores'
@@ -63,10 +64,13 @@ def expand_join_gather(ends, lo, a_payload, b_v, b_u, total,
 
 
 def segment_tables(scores: torch.Tensor, segment_ids: torch.Tensor,
-                   num_segments: int):
-    """The (N, D) float32 segment max (0 for an empty segment) and sum of
-    ``exp(scores - max)`` over rows with ids in ``[0, N)``.  Ids outside
-    go to a spare row N that is cut off, so nothing syncs with the host."""
+                   num_segments: int) -> torch.Tensor:
+    """The packed (N, D, 2) float32 segment table: ``[..., 0]`` the segment
+    max (0 for an empty segment), ``[..., 1]`` the sum of
+    ``exp(scores - max)`` over rows with ids in ``[0, N)``.  The reductions
+    write into the packed table itself, so packing costs no pass.  Ids
+    outside go to a spare row N that is cut off, so nothing syncs with the
+    host."""
     if num_segments < 1:
         raise ValueError("segment_softmax needs num_segments >= 1")
     n, d = num_segments, scores.shape[1]
@@ -77,26 +81,28 @@ def segment_tables(scores: torch.Tensor, segment_ids: torch.Tensor,
                     device=scores.device)
     mx.scatter_reduce_(0, spare[:, None].expand(-1, d), x, "amax",
                        include_self=False)
-    mx = torch.where(torch.isfinite(mx[:n]), mx[:n], 0.0)
-    ex = torch.exp(x - mx[seg.clamp(0, n - 1)])
-    den = torch.zeros((n + 1, d), dtype=torch.float32, device=scores.device)
+    table = torch.empty((n + 1, d, 2), dtype=torch.float32, device=scores.device)
+    torch.where(torch.isfinite(mx[:n]), mx[:n], mx.new_zeros(()),
+                out=table[:n, :, 0])
+    ex = torch.exp(x - table[seg.clamp(0, n - 1), :, 0])
+    den = table[:, :, 1]
+    den.zero_()
     den.index_add_(0, spare, ex)
-    return mx, den[:n]
+    return table[:n]
 
 
 def segment_normalize(scores: torch.Tensor, segment_ids: torch.Tensor,
-                      mx: torch.Tensor, den: torch.Tensor,
-                      eps: float = 1e-9) -> torch.Tensor:
-    """The normalize pass: ``exp(scores - mx[s]) / (den[s] + eps)`` with
-    ``s`` the id clipped to ``[0, N)``, in float32, rounded to the scores'
-    dtype."""
-    s = segment_ids.long().clamp(0, mx.shape[0] - 1)
-    out = torch.exp(scores.float() - mx[s]) / (den[s] + eps)
+                      table: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """The normalize pass: ``exp(scores - table[s, :, 0]) / (table[s, :, 1]
+    + eps)`` with ``s`` the id clipped to ``[0, N)``, in float32, rounded to
+    the scores' dtype."""
+    t = table[segment_ids.long().clamp(0, table.shape[0] - 1)]
+    out = torch.exp(scores.float() - t[..., 0]) / (t[..., 1] + eps)
     return out.to(scores.dtype)
 
 
 def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int, eps: float = 1e-9) -> torch.Tensor:
     """Per-segment softmax over axis 0 of (E, D) scores."""
-    mx, den = segment_tables(scores, segment_ids, num_segments)
-    return segment_normalize(scores, segment_ids, mx, den, eps)
+    table = segment_tables(scores, segment_ids, num_segments)
+    return segment_normalize(scores, segment_ids, table, eps)

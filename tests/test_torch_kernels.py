@@ -233,9 +233,9 @@ def test_segment_tables_drop_out_of_range_ids():
     np.testing.assert_array_equal(
         np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), 3)),
         [[2.0], [3.0], [0.0]])
-    mx, den = ref.segment_tables(torch.from_numpy(vals), torch.from_numpy(seg), 3)
-    np.testing.assert_array_equal(mx.numpy(), [[2.0], [3.0], [0.0]])  # empty: 0
-    np.testing.assert_array_equal(den.numpy(), [[1.0], [1.0], [0.0]])  # exp(0)
+    table = ref.segment_tables(torch.from_numpy(vals), torch.from_numpy(seg), 3)
+    np.testing.assert_array_equal(table[..., 0].numpy(), [[2.0], [3.0], [0.0]])  # empty: 0
+    np.testing.assert_array_equal(table[..., 1].numpy(), [[1.0], [1.0], [0.0]])  # exp(0)
 
 
 def test_segment_softmax_cpu_takes_the_plain_version():
@@ -249,6 +249,113 @@ def test_segment_softmax_cpu_takes_the_plain_version():
 def test_segment_softmax_wrapper_refuses_cpu_tensors():
     x = torch.zeros(4, 2)
     seg = torch.zeros(4, dtype=torch.int32)
-    table = torch.zeros(1, 2)
+    table = torch.zeros(1, 2, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        segment_softmax.segment_normalize(x, seg, table, table)
+        segment_softmax.segment_normalize(x, seg, table)
+
+
+def _bad_tables():
+    """Tables the kernel cannot gather from, for (E, 2) scores, by name."""
+    flat = torch.zeros(3 * 2 * 2 + 1)
+    return {
+        "two_dims": torch.zeros(3, 2),
+        "three_slots": torch.zeros(3, 2, 3),
+        "other_width": torch.zeros(3, 4, 2),
+        "no_rows": torch.zeros(0, 2, 2),
+        "float64": torch.zeros(3, 2, 2, dtype=torch.float64),
+        "bfloat16": torch.zeros(3, 2, 2, dtype=torch.bfloat16),
+        "transposed": torch.zeros(2, 3, 2).transpose(0, 1),
+        "slots_apart": torch.zeros(2, 3, 2).permute(1, 2, 0).transpose(1, 2),
+        "every_other_row": torch.zeros(6, 2, 2)[::2],
+        "off_8_bytes": flat[1:].view(3, 2, 2),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_bad_tables()))
+def test_segment_softmax_wrapper_refuses_bad_packed_tables(name):
+    """A wrongly shaped, typed, strided or misaligned packed table raises
+    before the device is looked at (the kernel reads one aligned float2 an
+    entry); the message names the table."""
+    table = _bad_tables()[name]
+    x = torch.zeros(4, 2)
+    seg = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="^table: "):
+        segment_softmax.segment_normalize(x, seg, table)
+    with pytest.raises(ValueError, match="^table: "):
+        segment_softmax.check_table(table, 2)
+
+
+def test_segment_softmax_packed_table_views_are_accepted():
+    """A row slice of a packed table still starts on 8 bytes and passes."""
+    table = torch.zeros(5, 3, 2)
+    for t in (table, table[1:], table[2:4]):
+        segment_softmax.check_table(t, 3)
+
+
+def _jax_tables(scores, seg, n):
+    """The reference's two separate (N, D) tables, in float32: the
+    segment max (0 where empty) and the sum of exp(scores - max)."""
+    x = jnp.asarray(scores, jnp.float32)
+    s = jnp.asarray(seg)
+    mx = jax.ops.segment_max(x, s, n)
+    mx = jnp.where(jnp.isfinite(mx), mx, 0.0)
+    den = jax.ops.segment_sum(jnp.exp(x - mx[jnp.clip(s, 0, n - 1)]), s, n)
+    return np.asarray(mx), np.asarray(den)
+
+
+@pytest.mark.parametrize("case", ["empty_segments", "out_of_range", "unsorted",
+                                  "ragged", "one_edge"])
+@pytest.mark.parametrize("d", [1, 4])
+def test_packed_segment_table_equals_the_two_tables(case, d):
+    """``ref.segment_tables`` fills one (N, D, 2) table: slot 0 equals the
+    reference's segment max exactly, slot 1 its segment sum (float32
+    sums, 1e-6), with empty segments 0 and out-of-range ids dropped."""
+    scores, seg, n = _softmax_case(case, np.random.default_rng(23 + d))
+    scores = np.ascontiguousarray(
+        np.resize(scores, (scores.shape[0], d)), np.float32)
+    seg = seg.astype(np.int32)
+    table = ref.segment_tables(torch.from_numpy(scores), torch.from_numpy(seg), n)
+    assert table.shape == (n, d, 2) and table.dtype == torch.float32
+    assert table.is_contiguous() and table.data_ptr() % 8 == 0
+    mx, den = _jax_tables(scores, seg, n)
+    np.testing.assert_array_equal(table[..., 0].numpy(), mx)
+    np.testing.assert_allclose(table[..., 1].numpy(), den, rtol=1e-6, atol=1e-6)
+    if case == "empty_segments":
+        assert (table[1::3] == 0).all() and (table[2::3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", sorted(_SOFTMAX_DTYPES))
+@pytest.mark.parametrize("e,d,n", [(512, 1, 16), (1024, 8, 64), (2048, 4, 100),
+                                   (1000, 5, 30)])
+def test_segment_normalize_on_packed_table_equals_jax(dtype, e, d, n):
+    """The plain normalize pass reading the packed table against the
+    reference's normalize formula on its own two tables, at the reference
+    test's shapes and a ragged E."""
+    t_dtype, j_dtype, tol = _SOFTMAX_DTYPES[dtype]
+    rng = np.random.default_rng(e * 3 + d + n)
+    scores = np.array(jnp.asarray(rng.normal(0, 3, (e, d)), j_dtype), np.float32)
+    seg = rng.integers(-2, n + 2, e).astype(np.int32)
+    x = torch.from_numpy(scores).to(t_dtype)
+    table = ref.segment_tables(x, torch.from_numpy(seg), n)
+    got = ref.segment_normalize(x, torch.from_numpy(seg), table)
+    mx, den = _jax_tables(scores, seg, n)
+    s = np.clip(seg, 0, n - 1)
+    exp = np.exp(scores - mx[s]) / (den[s] + np.float32(1e-9))
+    assert got.dtype == t_dtype and got.shape == (e, d)
+    np.testing.assert_allclose(got.float().numpy(), exp, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n_hay,path,shared_bytes", [
+    (0, "global", 0), (1, "global", 0), (7, "global", 0),
+    (32, "global", 0),  # one 128-byte L1 line: searched in place
+    (33, "shared", 132), (256, "shared", 1024), (1000, "shared", 4000),
+    (4096, "shared", 16_384), (4097, "shared", 16_388),
+    (6144, "shared", 24_576),  # the whole budget
+    (6145, "global", 0), (12_288, "global", 0), (58_112, "global", 0),
+    (100_000, "global", 0), (1 << 20, "global", 0)])
+def test_sorted_member_mask_launch_plan(n_hay, path, shared_bytes):
+    """A haystack that fits the budget is staged in 4 bytes an id of
+    shared memory; a larger one, or one within a single 128-byte line, is
+    searched in device memory by the same kernel."""
+    assert sorted_intersect.launch_plan(n_hay) == (path, shared_bytes)
+    assert shared_bytes <= sorted_intersect.SHARED_BUDGET == 24 * 1024
