@@ -10,7 +10,9 @@ Phases, each printed on its own lines:
                  card: the three integer kernels bit for bit (the CPU tests'
                  shapes, SENTINEL, -1, INT_MIN and empty cases, several
                  lanes; sorted_member_mask on both sides of its shared-memory
-                 budget, up to a haystack of 131 072 ids), segment_softmax on
+                 budget, up to a haystack of 131 072 ids; the two query-path
+                 kernels at every block size the autotuner sweeps, 128, 256,
+                 512 and 1 024 threads), segment_softmax on
                  the packed (N, D, 2) table bit for bit in float32 and
                  bfloat16 (each of its three kernels, a misaligned base and
                  a ragged E at D = 1 included), the packed table held to two
@@ -33,16 +35,30 @@ Phases, each printed on its own lines:
                  bursts past its queue bound; then a second service with the
                  write path and the adaptation loop over phase 7's iaCPQx
                  mirror, fed a drifting two-tenant stream and one batch of 100
-                 updates; answers held to the scipy reference;
+                 updates; answers held to the scipy reference; the write-path
+                 service is checkpointed (it is kept for phase 12);
 9. rpq         — the RPQ benchmark's seven Cypher texts, lowered by the port,
                  through Engine.execute_rpq (or execute) and the service,
                  held to a boolean scipy.sparse fixpoint written here;
-10. edge_softmax — the GNN substrate's edge softmax at the repository's graph
+10. baselines  — the paper's language-unaware Path index and iaPath of the
+                 phase-4 graph (phase 4's build caps, phase 6's interests),
+                 phase 5's draws through PathEngine.execute beside CPQx's
+                 times, and the index-free BFS on one draw a template;
+11. calibrate  — costmodel.calibrate and the block-size autotuner at the
+                 ladder rungs of the phase-4 engine, a calibrated Engine over
+                 phase 5's draws, online refinement, SLO shedding of the
+                 phase-8 read stream, the table's JSON round trip;
+12. lifecycle  — the phase-4 index saved and restored (every field equal),
+                 the write-path service checkpointed with the calibrated
+                 table and restored as a cold replica (epoch, mirror,
+                 adapter and answers equal), one update batch applied to
+                 donor and replica alike;
+13. edge_softmax — the GNN substrate's edge softmax at the repository's graph
                  shapes, float32 and bfloat16;
    then the kernels again, on the built index's own arrays and on the inputs
    the paths gave them, with their times.
 
-Each path (phases 4-5, 6, 7, 8's two services, 9 and 10) is driven with the
+Each path (phases 4-5, 6, 7, 8's two services, 9 to 13) is driven with the
 launch counts set to 0 just before it and read just after; a path that never
 launched one of its kernels fails.  The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}.  Any failure exits non-zero;
@@ -53,6 +69,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -92,6 +109,8 @@ RPQ_TEXTS = [
     "MATCH (a)-[:l0]->(b)-[:l1]->(c) RETURN a, c",
 ]
 PIN_TRIES = 5  # sources tried when a star must be pinned
+PATH_ROUNDS = 4  # PathEngine passes over phase 5's draws (the first warms up)
+SLO_DISPATCHES = 12  # the SLO budget, in requests of median predicted cost
 # src/repro/configs/__init__.py gnn_shapes at the repository's GatedGCN width
 # (configs/gatedgcn.py d_hidden=70): (name, E, D, N)
 SOFTMAX_CASES = [
@@ -334,6 +353,11 @@ def tenant_report(what, stats, accepted, wall: float) -> None:
             f"{ts.cache_hits}, rounds {rounds}; latency p50 "
             f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} "
             f"ms; {ts.served / wall:.1f} q/s")
+
+
+def dir_bytes(path) -> int:
+    """Bytes of every file under ``path``."""
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
 
 
 def check_answers(engine, g, queries, what: str) -> None:
@@ -723,13 +747,13 @@ def main() -> int:
 
     from repro_torch.core import index as cindex
     from repro_torch.core import interest
-    from repro_torch.core.capacity import estimate_build_caps
+    from repro_torch.core.capacity import estimate_build_caps, graph_stats
     from repro_torch.core.engine import Engine
     from repro_torch.core.maintenance import MaintainableIndex
     from repro_torch.data.graphs import gmark_citation
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels import (expand_join, fingerprint, ops, ref,
-                                     segment_softmax, sorted_intersect)
+    from repro_torch.kernels import (autotune, expand_join, fingerprint, ops,
+                                     ref, segment_softmax, sorted_intersect)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -767,13 +791,14 @@ def main() -> int:
                  "expand_join_gather": ref.expand_join_gather,
                  "fingerprint_rows": ref.fingerprint_rows,
                  "segment_softmax": ref.segment_normalize}
+    m_cases, j_cases = member_cases(rng, dev), join_cases(rng, dev)
     err = {
         "sorted_member_mask": check_parity(
             "sorted_member_mask", sorted_intersect.sorted_member_mask,
-            ref.sorted_member_mask, member_cases(rng, dev)),
+            ref.sorted_member_mask, m_cases),
         "expand_join_gather": check_parity(
             "expand_join_gather", expand_join.expand_join_gather,
-            ref.expand_join_gather, join_cases(rng, dev)),
+            ref.expand_join_gather, j_cases),
         "fingerprint_rows": check_parity(
             "fingerprint_rows", fingerprint.fingerprint_rows,
             ref.fingerprint_rows, fingerprint_cases(rng, dev)),
@@ -795,6 +820,19 @@ def main() -> int:
         + ", ".join(f"B={h.shape[0]} n_hay={h.shape[1]} n_q={q.shape[1]} "
                     f"{path}" for path, (h, _, q) in member_budget)
         + ": bit-exact (tolerance 0)")
+    for t in autotune.CANDIDATES:  # every block size the autotuner sweeps
+        err["sorted_member_mask"] = max(err["sorted_member_mask"], check_parity(
+            f"sorted_member_mask threads={t}",
+            lambda *a, t=t: sorted_intersect.sorted_member_mask(*a, threads=t),
+            ref.sorted_member_mask, m_cases + [c for _, c in member_budget]))
+        err["expand_join_gather"] = max(err["expand_join_gather"], check_parity(
+            f"expand_join_gather threads={t}",
+            lambda *a, t=t: expand_join.expand_join_gather(*a, threads=t),
+            ref.expand_join_gather, j_cases))
+    say(f"[parity] sorted_member_mask (the test cases and both sides of the "
+        f"budget) and expand_join_gather at threads {autotune.CANDIDATES} a "
+        f"block: bit-exact (tolerance 0); without a table both launch "
+        f"{sorted_intersect.DEFAULT_THREADS} / {expand_join.DEFAULT_THREADS}")
     softmax_err = check_softmax_parity(
         segment_softmax.segment_normalize, ref.segment_normalize,
         ref.segment_tables, softmax_cases(rng, dev))
@@ -824,6 +862,7 @@ def main() -> int:
 
     # ---- the paths: spies record each kernel's largest input ---------- #
     recorded = {name: None for name in KERNELS}
+    recording = [True]
     real = {"sorted_member_mask": ops.sorted_member_mask,
             "expand_join_gather": ops.expand_join_gather,
             "fingerprint_rows": ops.fingerprint_rows}
@@ -833,6 +872,8 @@ def main() -> int:
                 "segment_softmax": segment_softmax}
 
     def record(name, args, work):
+        if not recording[0]:  # the calibration's synthetic inputs
+            return
         best = recorded[name]
         if best is None or work > best[0]:  # as the kernel receives them
             recorded[name] = (work, tuple(
@@ -895,6 +936,13 @@ def main() -> int:
         f"resident before it); fingerprint_rows launches {fp_build}")
     if fp_build == 0:
         fail("the CPQx build never launched fingerprint_rows")
+    t0 = time.perf_counter()
+    gstats = graph_stats(g, K)
+    say(f"[index] graph_stats (the paper's Table IV; host numpy, "
+        f"{time.perf_counter() - t0:.2f} s): |P<={K}|={gstats['n_pairs']}, "
+        f"sequence incidences {gstats['seq_incidences']}, gamma "
+        f"{gstats['gamma']:.4f}, max out-degree {gstats['max_out_degree']}, "
+        f"level rows {gstats['level_rows']}")
 
     # ---- 5. queries -------------------------------------------------- #
     engine = Engine(index)
@@ -945,7 +993,7 @@ def main() -> int:
             f"{n_queries} query evaluations; telemetry {engine.telemetry}")
         return results, n_queries
 
-    run_templates(engine, "queries")
+    cpqx_results, _ = run_templates(engine, "queries")
     path_counts["cpqx"] = read_counts("main path (CPQx build + queries)",
                                       INDEX_KERNELS)
 
@@ -1166,7 +1214,17 @@ def main() -> int:
     path_counts["serving_write"] = read_counts(
         "serving write path (updates + adaptation over the iaCPQx mirror)",
         ("expand_join_gather",))
-    del wsvc, mia, ia_engine  # the mirror holds gigabytes at 20k
+    # the write-path state, checkpointed here; phase 12 restores a replica
+    # from it and keeps driving the donor, so the donor lives until then
+    ckpt_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    svc_dir = str(ckpt_root / "service")
+    t0 = time.perf_counter()
+    step0 = wsvc.checkpoint(svc_dir)
+    t_ck0 = time.perf_counter() - t0
+    say(f"[serving] write-path service checkpointed as step {step0} in "
+        f"{t_ck0:.2f} s ({dir_bytes(svc_dir)} bytes on disk); kept for "
+        f"phase 12")
 
     # ---- 9. RPQ and Cypher (counts to 0 just before) ----------------- #
     zero_counts()
@@ -1238,7 +1296,257 @@ def main() -> int:
     path_counts["rpq"] = read_counts("RPQ + Cypher (execute_rpq and the service)",
                                      ("expand_join_gather",))
 
-    # ---- 10. edge_softmax at the GNN shapes (counts to 0 just before) -- #
+    # ---- 10. baselines: Path index, iaPath, BFS (counts to 0 just before) #
+    from repro_torch.core.baselines import PathEngine, build_path
+    from repro_torch.core.oracle import bfs_eval
+
+    zero_counts()
+    builds = {}
+    for what, make in (
+            ("Path", lambda: build_path(g, K, caps=caps)),
+            ("iaPath", lambda: build_path(g, K, interests=ints, caps=caps))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pidx = make()
+        torch.cuda.synchronize()
+        builds[what] = (pidx, time.perf_counter() - t0,
+                        torch.cuda.max_memory_allocated() - before)
+    (path_idx, t_p, p_peak), (ia_path, t_iap, iap_peak) = builds.values()
+    say(f"[baselines] Path index of gmark_citation({N_VERTICES}) k={K} (phase "
+        f"4's build caps): device build {t_p:.3f} s, peak device memory "
+        f"{p_peak / 2**30:.3f} GiB, size_entries {path_idx.size_entries()} "
+        f"(CPQx: {t_build:.3f} s, {peak / 2**30:.3f} GiB, size_entries "
+        f"{index.size_entries()})")
+    say(f"[baselines] iaPath over {ints}: device build {t_iap:.3f} s, peak "
+        f"{iap_peak / 2**30:.3f} GiB, size_entries {ia_path.size_entries()} "
+        f"(iaCPQx: {t_ia:.3f} s, {ia_peak / 2**30:.3f} GiB, size_entries "
+        f"{ia_index.size_entries()})")
+    del ia_path
+    pe = PathEngine(path_idx)
+    say(f"[baselines] PathEngine default caps {pe.default_caps}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    q_before = torch.cuda.memory_allocated()
+    path_ms, n_path = {}, 0
+    for name, accepted in per_template.items():
+        lat = []
+        for rnd in range(PATH_ROUNDS):  # round 0 warms up, not timed
+            for q, exp in accepted:
+                t0 = time.perf_counter()
+                got = pe.execute(q)
+                if rnd:
+                    lat.append(time.perf_counter() - t0)
+                n_path += 1
+                if not np.array_equal(got, exp):
+                    fail(f"PathEngine {name} {q!r}: answer ({len(got)} pairs) "
+                         f"differs from the reference ({len(exp)} pairs)")
+        path_ms[name] = 1e3 * float(np.median(lat))
+    q_peak = torch.cuda.max_memory_allocated() - q_before
+    for name in TEMPLATES:
+        cq = cpqx_results[name]["execute_ms_median"]
+        say(f"[baselines] {name:4s} PathEngine.execute median "
+            f"{path_ms[name]:.3f} ms, CPQx {cq:.3f} ms (phase 5): Path / CPQx "
+            f"{path_ms[name] / cq:.2f}")
+    say(f"[baselines] {n_path} PathEngine evaluations ({PATH_ROUNDS} rounds "
+        f"of phase 5's draws, the first a warm-up), all equal to the "
+        f"scipy.sparse reference; peak device memory of the queries "
+        f"{q_peak / 2**30:.3f} GiB above {q_before / 2**30:.3f} GiB resident")
+    bfs_s = {}
+    for name, accepted in per_template.items():
+        q, exp = accepted[0]
+        t0 = time.perf_counter()
+        got = bfs_eval(g, q)
+        bfs_s[name] = time.perf_counter() - t0
+        rows = np.array(sorted(got), np.int32).reshape(-1, 2)
+        if not np.array_equal(rows, exp):
+            fail(f"bfs_eval {name} {q!r}: differs from the reference")
+    say(f"[baselines] index-free BFS (oracle.bfs_eval, host Python) on "
+        f"gmark_citation({N_VERTICES}), one draw a template, answers equal "
+        f"the reference: " + ", ".join(f"{n} {1e3 * t:.1f} ms"
+                                       for n, t in bfs_s.items())
+        + f"; {sum(bfs_s.values()):.2f} s in all")
+    del pe, path_idx
+    # the Path index shares the path enumeration, not the bisim hash, and
+    # evaluates in pair space: no kernel of the four is on this path
+    path_counts["baselines"] = read_counts(
+        "baselines (Path / iaPath builds + PathEngine + BFS)", ())
+
+    # ---- 11. cost model calibration + autotune (counts to 0 just before) #
+    from repro_torch.core import costmodel
+
+    zero_counts()
+    cal_probes = [per_template[name][0][0] for name in TEMPLATES]
+    rungs = costmodel.ladder_rungs(engine, cal_probes)
+    recording[0] = False  # the paths' largest calls stay the queries'
+    t0 = time.perf_counter()
+    cost_table = costmodel.calibrate(rungs)
+    t_cal = time.perf_counter() - t0
+    say(f"[calibrate] costmodel.calibrate at the phase-4 engine's ladder "
+        f"rungs {rungs} on {cost_table.device_kind}: {t_cal:.2f} s")
+    for op in costmodel.OPERATORS:
+        c = cost_table.ops[op]
+        say(f"[calibrate] {op}: fixed {c.fixed_ns:.0f} ns + "
+            f"{c.per_row_ns:.5f} ns a row; measured (rows, ns) "
+            f"{[(int(r), round(t)) for r, t in cost_table.samples[op]]}")
+    t0 = time.perf_counter()
+    cost_table.block_q, cost_table.block_t, raw = autotune.autotune(
+        rungs, repeats=5)
+    t_tune = time.perf_counter() - t0
+    recording[0] = True
+    for block, winners in (("block_q", cost_table.block_q),
+                           ("block_t", cost_table.block_t)):
+        for rung, win in sorted(winners.items()):
+            times = ", ".join(f"{b}: {ns / 1e3:.3f} us"
+                              for (k2, r2, b), ns in sorted(raw.items())
+                              if k2 == block and r2 == rung)
+            say(f"[calibrate] autotune {block} rung {rung}: winner {win} "
+                f"threads; {times}")
+    say(f"[calibrate] autotune {t_tune:.2f} s; every candidate's output "
+        f"bit-equal to the first's")
+    costmodel.activate(cost_table)
+    cal_engine = Engine(index, cost_table=cost_table)
+    run_templates(cal_engine, "calibrate")
+    scale = costmodel.refine_with_engine(cost_table, cal_engine, cal_probes)
+    say(f"[calibrate] refine_with_engine over {len(cal_probes)} probes: "
+        f"scale {scale:.4f}, dispatch floor "
+        f"{cost_table.dispatch_floor_ns:.0f} ns")
+    preds = [cal_engine.predict_cost_ns(cal_engine.plan(q)) for q, _ in stream]
+    budget = SLO_DISPATCHES * float(np.median(preds))
+    ssvc = QueryService(cal_engine, union=True, max_batch=64, slo_ns=budget,
+                        auto_flush=False)
+    s_accepted = []
+    for off in range(0, len(stream), SERVE_BURST):
+        for i, (q, exp) in enumerate(stream[off: off + SERVE_BURST], off):
+            req = ssvc.submit(q, tenant=who[i % len(who)])
+            if not req.shed:
+                s_accepted.append((req, exp))
+        ssvc.flush()
+    for req, exp in s_accepted:
+        if not req.done or req.result is None:
+            fail(f"SLO service: accepted request {req.rid} never completed")
+        if not np.array_equal(req.result, exp):
+            fail(f"SLO service: {req.query!r} answer differs from the "
+                 "reference")
+    slo_shed = sum(ts.shed_reasons.get("slo", 0)
+                   for ts in ssvc.stats.tenants.values())
+    say(f"[calibrate] SLO service over the calibrated engine: predicted cost "
+        f"of phase 8's read stream median {np.median(preds):.0f} ns (min "
+        f"{min(preds):.0f}, max {max(preds):.0f}); budget slo_ns "
+        f"{budget:.0f} ns ({SLO_DISPATCHES} median requests); "
+        f"{len(stream)} requests: {len(s_accepted)} accepted, all answers "
+        f"equal the reference; {ssvc.stats.shed} shed, {slo_shed} of them by "
+        f"the SLO")
+    if slo_shed == 0:
+        fail("SLO service: nothing was shed by the SLO gate")
+    ckpt_root.mkdir(parents=True, exist_ok=True)
+    table_path = str(ckpt_root / "costtable.json")
+    cost_table.save(table_path)
+    if costmodel.DeviceCostTable.load(table_path).to_json() \
+            != cost_table.to_json():
+        fail("cost table: the JSON round trip changed the table")
+    say(f"[calibrate] the table's JSON round trip is equal "
+        f"({Path(table_path).stat().st_size} bytes)")
+    path_counts["calibrate"] = read_counts(
+        "calibrate (calibrate + autotune + calibrated engine + SLO service)",
+        ("sorted_member_mask", "expand_join_gather"))
+
+    # ---- 12. lifecycle: save / restore / promote (counts to 0 before) -- #
+    from repro_torch.checkpoint import committed_steps
+    from repro_torch.core.index import CPQxIndex
+    from repro_torch.core.lifecycle import restore_service
+
+    zero_counts()
+    idx_dir = str(ckpt_root / "index")
+    t0 = time.perf_counter()
+    index.save(idx_dir)
+    t_isave = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = CPQxIndex.restore(idx_dir)
+    torch.cuda.synchronize()
+    t_iload = time.perf_counter() - t0
+    for f in index.arrays._fields:
+        if not torch.equal(getattr(restored.arrays, f), getattr(index.arrays, f)):
+            fail(f"restored index: field {f} differs from the live index")
+    if restored.seq_ranges != index.seq_ranges or restored.caps != index.caps:
+        fail("restored index: seq_ranges or caps differ from the live index")
+    r_engine = Engine(restored)
+    for name in TEMPLATES:
+        q, exp = per_template[name][0]
+        got = r_engine.execute(q)
+        if not np.array_equal(got, engine.execute(q)) \
+                or not np.array_equal(got, exp):
+            fail(f"restored index: {q!r} answer differs")
+    say(f"[lifecycle] CPQx index: save {t_isave:.3f} s "
+        f"({dir_bytes(idx_dir)} bytes on disk), CPQxIndex.restore on the card "
+        f"{t_iload:.3f} s; all {len(index.arrays._fields)} fields torch.equal "
+        f"to the live index; {len(TEMPLATES)} probes equal the live engine "
+        f"and the reference (rebuild, phase 4: host estimate {t_caps:.2f} s "
+        f"+ device {t_build:.3f} s)")
+    del r_engine, restored
+    wsvc.engine.cost_table = cost_table
+    t0 = time.perf_counter()
+    step1 = wsvc.checkpoint(svc_dir)
+    t_ssave = time.perf_counter() - t0
+    donor_mirror = wsvc.maintainer.export_state()
+    donor_adapter = wsvc.adapter.export_state()
+    t0 = time.perf_counter()
+    replica = restore_service(svc_dir, union=True, max_batch=16,
+                              auto_flush=False)
+    torch.cuda.synchronize()
+    t_sload = time.perf_counter() - t0
+    if committed_steps(svc_dir) != [step0, step1]:
+        fail(f"service checkpoint: committed steps {committed_steps(svc_dir)}")
+    if replica.graph_epoch != wsvc.graph_epoch + 1:
+        fail(f"replica epoch {replica.graph_epoch}, donor {wsvc.graph_epoch}")
+    if replica.engine.cost_table is None \
+            or replica.engine.cost_table.to_json() != cost_table.to_json():
+        fail("replica: the calibrated table did not come over")
+    for what, mine, theirs in (("mirror", replica.maintainer.export_state(),
+                                donor_mirror),
+                               ("adapter", replica.adapter.export_state(),
+                                donor_adapter)):
+        if mine.keys() != theirs.keys() or not all(
+                np.array_equal(mine[k], theirs[k]) for k in mine):
+            fail(f"replica: the {what} state differs from the donor's")
+    check_answers(replica.engine, replica.maintainer.g, cal_probes,
+                  "promoted replica")
+    say(f"[lifecycle] write-path service: checkpoint with the calibrated "
+        f"table as step {step1} in {t_ssave:.2f} s ({dir_bytes(svc_dir)} "
+        f"bytes on disk for steps {committed_steps(svc_dir)}); "
+        f"restore_service of a cold replica {t_sload:.2f} s (the mirror's "
+        f"rebuild, phase 7: iaCPQx mirror {t_ia_mirror:.2f} s + a flush); "
+        f"epoch {replica.graph_epoch} = donor's + 1; mirror and adapter "
+        f"export_state equal the donor's; probes equal the reference")
+    batch = update_batch(wsvc.maintainer.g, np.random.default_rng(13), MAINT_OPS)
+    upd = {}
+    for what, svc_ in (("donor", wsvc), ("replica", replica)):
+        t0 = time.perf_counter()
+        svc_.apply_updates(batch)
+        svc_.flush()
+        torch.cuda.synchronize()
+        upd[what] = time.perf_counter() - t0
+    if replica.maintainer.g.n_edges != wsvc.maintainer.g.n_edges:
+        fail("replica and donor graphs differ after the update batch")
+    for q in cal_probes:
+        if not np.array_equal(replica.engine.execute(q), wsvc.engine.execute(q)):
+            fail(f"after the update batch: {q!r} differs between replica "
+                 "and donor")
+    check_answers(replica.engine, replica.maintainer.g, cal_probes,
+                  "promoted replica after the update batch")
+    say(f"[lifecycle] one batch of {len(batch)} updates on donor and replica "
+        f"(apply + flush: donor {upd['donor']:.2f} s, replica "
+        f"{upd['replica']:.2f} s): flushed answers equal each other and the "
+        f"reference")
+    path_counts["lifecycle"] = read_counts(
+        "lifecycle (restored index + promoted replica + update batch)",
+        ("sorted_member_mask", "expand_join_gather"))
+    costmodel.activate(None)
+    shutil.rmtree(ckpt_root)
+    del replica, wsvc, mia, ia_engine, ssvc, cal_engine  # mirrors: gigabytes
+
+    # ---- 13. edge_softmax at the GNN shapes (counts to 0 just before) -- #
     zero_counts()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1344,6 +1652,11 @@ def main() -> int:
         call_ms = cuda_ms(lambda: kernel_fns[name](*args))
         t_bytes = 1e3 * bytes_ / HBM_BYTES_PER_S
         t_ops = 1e3 * ops_ / INT_OPS_PER_S
+        if ms < max(t_bytes, t_ops):  # below the bound: a lossy trace
+            say(f"[kernels] {name} at {where}: the profiler's {ms:.5f} ms is "
+                f"below the bound, so it lost events; the time a call between "
+                f"CUDA events, host included, is kept instead")
+            ms = call_ms
         say(f"[kernels] {name} at {where} {shape}: kernel {ms:.5f} ms on the "
             f"device ({call_ms:.4f} ms a call, host included), plain "
             f"{plain_ms:.5f} ms, library "
@@ -1378,6 +1691,17 @@ def main() -> int:
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[name],
                     "max_abs_err": err[name], **rec})
+    for name, block, fn in (
+            ("sorted_member_mask", "block_q", sorted_intersect.sorted_member_mask),
+            ("expand_join_gather", "block_t", expand_join.expand_join_gather)):
+        args = recorded[name][1]
+        n = args[2].shape[1] if name == "sorted_member_mask" else args[6]
+        win = ops._threads(getattr(cost_table, block), n, 256)
+        t_win = device_ms(lambda: fn(*args, threads=win))
+        t_256 = device_ms(lambda: fn(*args))
+        say(f"[kernels] {name} at the paths' largest call: the calibrated "
+            f"table's {block} gives {win} threads a block at this call's "
+            f"rung: {t_win:.5f} ms; at 256 threads {t_256:.5f} ms")
     timed("sorted_member_mask", index_member_cases(index, dev, rng)[0],
           "the index's 16 largest class lists")
     for where, (hay, cnt, q) in [("the paths' largest call",

@@ -10,7 +10,8 @@ caller overrides the estimate downward) ``core.index.build`` raises.
 
 :class:`FlushCaps` sizes a maintenance flush (the mirror's two inverted
 maps only), and ``encode_caps``/``decode_caps`` carry either kind as one
-small int vector.
+small int vector.  :func:`graph_stats` reports |P^{<=k}|, gamma and the
+degree statistics of the paper's Table IV.
 """
 
 from __future__ import annotations
@@ -190,3 +191,20 @@ def decode_caps(arr):
             pair_cap=int(a[1]), union_pair_cap=int(a[2]),
             seq_rows=int(a[3]), l2c_rows=int(a[4]), n_seqs=int(a[5]))
     raise ValueError(f"unknown caps tag {tag}")
+
+
+def graph_stats(g: LabeledGraph, k: int) -> dict:
+    """|P^{<=k}|, gamma (avg distinct seqs per pair), degree stats —
+    the quantities of paper Sec. III-A / Table IV."""
+    levels = path_level_counts(g, k)
+    seq_rows = sum(r.shape[0] for r in levels)
+    pairs = np.unique(
+        np.concatenate([r[:, :2] for r in levels], axis=0), axis=0
+    )
+    return {
+        "n_pairs": int(pairs.shape[0]),
+        "seq_incidences": int(seq_rows),
+        "gamma": float(seq_rows / max(1, pairs.shape[0])),
+        "max_out_degree": g.max_degree(),
+        "level_rows": [int(r.shape[0]) for r in levels],
+    }

@@ -65,6 +65,9 @@ class LadderTelemetry:
     default_jumps: int = 0
     union_lanes: int = 0
 
+    def snapshot(self) -> "LadderTelemetry":
+        return dataclasses.replace(self)
+
 
 @dataclasses.dataclass
 class _Group:
@@ -100,27 +103,41 @@ class Engine:
     ``optimize`` selects the planner: True (default) runs the cost-based
     optimizer over the index statistics; False pins the syntactic
     ``plan_query``.
+
+    ``cost_table`` (a :class:`~repro_torch.core.costmodel.DeviceCostTable`)
+    upgrades the row-count objective to calibrated device nanoseconds:
+    the planner prices per-stage dispatch constants,
+    :meth:`predict_cost_ns` prices a plan for the service's SLO gate, and
+    :meth:`estimate_caps` picks the starting capacity rung with the
+    minimal expected cost including retry risk.  None (default) keeps
+    the row-count behaviour.  The table survives :meth:`rebind`: like
+    the telemetry, it describes the device, not the index.
     """
 
-    def __init__(self, index: CPQxIndex, optimize: bool = True, device=None):
+    def __init__(self, index: CPQxIndex, optimize: bool = True, device=None,
+                 cost_table=None):
         self.device = resolve_device(device)
         self.optimize = optimize
+        self.cost_table = cost_table
         self.telemetry = LadderTelemetry()
         self.rebind(index)
 
-    def rebind(self, index: CPQxIndex) -> None:
-        """Swap in a new index (a maintenance flush or a rebuild) in place:
-        re-pulls the host-side statistics view (optimizer + capacity
-        estimator), the set of sequences an iaCPQx index holds (the
-        planners split every other sequence) and the default caps, and
-        rebuilds the backend."""
+    def rebind(self, index: CPQxIndex, stats: IndexStats | None = None) -> None:
+        """Swap in a new index (a maintenance flush, a rebuild or a
+        restore) in place: re-pulls the host-side statistics view
+        (optimizer + capacity estimator), the set of sequences an iaCPQx
+        index holds (the planners split every other sequence) and the
+        default caps, and rebuilds the backend.  ``stats`` supplies a
+        pre-built statistics view of this exact index instead (a
+        checkpoint restore passes one whose endpoint cache is pre-warmed
+        from the donor)."""
         if index.device != self.device:
             raise ValueError(
                 f"index lies on {index.device}, engine expects {self.device}; "
                 f"pass device='{index.device}' to run there")
         self.index = index
         self._available = index.available_seqs() if index.interests is not None else None
-        self.stats = IndexStats.from_index(index)
+        self.stats = stats if stats is not None else IndexStats.from_index(index)
         self._class_sizes = self.stats.class_sizes
         self._l2c_host = self.stats.l2c_cls
         self._default_caps = default_caps(index)  # one device sync, here
@@ -132,15 +149,20 @@ class Engine:
         engine was constructed with ``optimize=False``."""
         if self.optimize:
             return optimize_query(q, self.index.k, self.stats,
-                                  available=self._available)
+                                  available=self._available,
+                                  cost_table=self.cost_table)
         return plan_query(q, self.index.k, available=self._available)
 
     def predict_cost_ns(self, plan) -> float:
-        """Predicted device nanoseconds of one dispatch of ``plan`` — what
-        the service's SLO-aware shedding prices a request at.  0.0: the
-        port has no calibrated cost table yet (the reference returns 0.0
-        without one too), so SLO shedding is inert."""
-        return 0.0
+        """Calibrated prediction of one dispatch of ``plan`` in device
+        nanoseconds — what the service's SLO-aware shedding prices a
+        request at before admitting it.  0.0 without a cost table (the
+        row-count objective has no time unit), so SLO shedding is inert
+        on uncalibrated engines."""
+        if self.cost_table is None:
+            return 0.0
+        est = estimate_plan(plan, self.stats, cost_table=self.cost_table)
+        return float(est.cost_ns)
 
     def estimate_caps(self, ranges: np.ndarray, shape,
                       plan=None) -> QueryCaps:
@@ -152,7 +174,10 @@ class Engine:
         to the plan's largest pre-dedup witness bound.  Without one,
         2x the largest single-lookup materialization.  Either way the
         class cap covers the largest LOOKUP's class list exactly, and the
-        sticky-overflow retry keeps undersized estimates exact."""
+        sticky-overflow retry keeps undersized estimates exact.  With a
+        cost table the pair cap is the rung, among the tight one and the
+        headroom rungs above it, of least expected cost (this dispatch
+        plus the risk-weighted retry at the next rung)."""
         max_classes, max_pairs = 1, 1
         for start, length in np.asarray(ranges, np.int64).reshape(-1, 2):
             max_classes = max(max_classes, int(length))
@@ -161,16 +186,24 @@ class Engine:
                 max_pairs = max(max_pairs, int(self._class_sizes[cls].sum()))
         headroom = 2
         max_join = 0
+        risky = False
         if plan is not None:
-            est = estimate_plan(plan, self.stats)
+            est = estimate_plan(plan, self.stats, cost_table=self.cost_table)
             max_pairs = int(max(est.max_pairs, est.pairs))
-            headroom = 4 if est.max_join > 0 else 2
+            risky = est.max_join > 0  # join outputs are estimates
+            headroom = 4 if risky else 2
             max_join = int(min(est.max_join, 4 * self._default_caps.join_cap))
         floor = self.index.n_vertices if _has_identity(shape) else 0
         # never *start* above the worst-case default (the retry ladder can
         # still climb past it if a join genuinely needs more)
         ceiling = max(self._default_caps.pair_cap, _pow2(floor))
         pair_cap = min(_pow2(max(64, headroom * max_pairs, floor)), ceiling)
+        if self.cost_table is not None and plan is not None:
+            base = min(_pow2(max(64, max_pairs, floor)), ceiling)
+            cands = sorted({min(c, ceiling) for c in
+                            (base, 2 * base, 4 * base, pair_cap)})
+            pair_cap = min(cands, key=lambda c: self.cost_table.
+                           expected_dispatch_ns(c, max_pairs, risky))
         join_cap = max(2 * pair_cap, _pow2(max_join))
         return QueryCaps(class_cap=_pow2(max(16, max_classes)),
                          pair_cap=pair_cap, join_cap=join_cap)

@@ -191,6 +191,29 @@ class CPQxIndex:
     def available_seqs(self) -> set:
         return set(self.seq_ranges)
 
+    # ---------------------- lifecycle (checkpoint) --------------------- #
+
+    def save(self, ckpt_dir: str, step: int = 0) -> str:
+        """Snapshot this index as one atomic committed checkpoint step
+        (``repro_torch.checkpoint``'s rename-commit layout, readable by
+        the reference package too); returns the step dir.  ``restore`` +
+        ``Engine.rebind`` replaces a from-graph rebuild — see
+        :mod:`repro_torch.core.lifecycle`."""
+        from . import lifecycle  # lazy: keep import cost off the build path
+
+        return lifecycle.save_index(self, ckpt_dir, step)
+
+    @staticmethod
+    def restore(ckpt_dir: str, step: int | None = None,
+                device=None) -> "CPQxIndex":
+        """Load the latest committed step (or ``step``) back into a
+        ready-to-bind index on the CUDA card unless ``device`` names
+        another: arrays placed, ``seq_ranges`` recomputed from the
+        arrays, caps decoded."""
+        from . import lifecycle
+
+        return lifecycle.restore_index(ckpt_dir, step, device)
+
 
 def _pull_seq_ranges(arrays: DeviceIndexArrays, k: int) -> dict:
     """Host dict of seq -> (start, end), from one pull per column."""

@@ -7,7 +7,12 @@ maintenance mirror (``core.maintenance``) holds and updates:
 * ``build_index``              — Algorithm 2 (CPQx = I_l2c + I_c2p)
 * ``build_interest_index``     — Def. 5.1 (iaCPQx)
 * ``query_with_index``         — Algorithms 3-4 (class-granular evaluation)
+* ``path_index``/``bfs_eval``  — baselines: language-unaware path index [14], BFS
+* ``verify_partition``         — checks the CPQ-correctness invariant of any
+                                 candidate partition
 * ``random_cpq``               — random CPQs for tests
+* ``rpq_eval``/``random_rpq``  — the RPQ ground truth (a Thompson NFA) and
+                                 random RPQs for tests
 
 Everything here is deliberately simple (dict/set based); it runs on the
 host and touches no device.
@@ -345,6 +350,97 @@ def _join_pairs(lp, rp):
     return {(v, y) for (v, u) in lp for y in by_src.get(u, ())}
 
 
+# ---------------------------------------------------------------------- #
+# Baseline 1 — language-unaware path index [14] (inverted index
+# label sequence -> s-t pairs), with the same two-stage evaluator but no
+# class space: every operator works on pairs.
+# ---------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class PathIndex:
+    k: int
+    l2p: dict  # {seq: sorted list of pairs}
+    interests: frozenset | None = None
+
+    def size_entries(self) -> int:
+        return sum(len(v) for v in self.l2p.values())
+
+
+def build_path_index(g: LabeledGraph, k: int,
+                     interests: Iterable[tuple[int, ...]] | None = None) -> PathIndex:
+    seqs = enumerate_pairs(g, k)
+    lq = None
+    if interests is not None:
+        lq = {(l,) for l in range(g.alphabet_size)} | {tuple(s) for s in interests}
+    l2p: dict[tuple[int, ...], list] = defaultdict(list)
+    for p, ss in seqs.items():
+        for s in ss:
+            if lq is None or s in lq:
+                l2p[s].append(p)
+    for s in l2p:
+        l2p[s].sort()
+    return PathIndex(k=k, l2p=dict(l2p),
+                     interests=frozenset(lq) if lq is not None else None)
+
+
+def query_with_path_index(g: LabeledGraph, pindex: PathIndex, q: CPQ) -> set:
+    plan = plan_query(q, pindex.k,
+                      available=set(pindex.l2p) if pindex.interests else None)
+
+    def ev(node):
+        kind = node[0]
+        if kind == "lookup":
+            pairs = set(pindex.l2p.get(tuple(node[1][0]), ()))
+            for seg in node[1][1:]:
+                pairs = _join_pairs(pairs, set(pindex.l2p.get(tuple(seg), ())))
+            return pairs
+        if kind == "identity":
+            return {(v, v) for v in range(g.n_vertices)}
+        if kind == "conj_id":
+            return {p for p in ev(node[1]) if p[0] == p[1]}
+        l, r = ev(node[1]), ev(node[2])
+        if kind == "join":
+            return _join_pairs(l, r)
+        if kind == "conj":
+            return l & r
+        raise ValueError(kind)
+
+    return ev(plan)
+
+
+# ---------------------------------------------------------------------- #
+# Baseline 2 — index-free BFS evaluation (semantics-directed, no index)
+# ---------------------------------------------------------------------- #
+
+
+def bfs_eval(g: LabeledGraph, q: CPQ) -> set[tuple[int, int]]:
+    """Same as cpq_eval — named separately as the paper's BFS baseline;
+    walks the graph with no precomputation."""
+    return cpq_eval(g, q)
+
+
+# ---------------------------------------------------------------------- #
+# Invariant checking — used by hypothesis property tests
+# ---------------------------------------------------------------------- #
+
+
+def verify_partition(g: LabeledGraph, k: int, part: Partition) -> bool:
+    """A partition is CPQ-correct iff every class is (a) cycle-pure and
+    (b) label-sequence-set pure: all pairs realize the same L^{<=k} set.
+    (Refinement of this partition is what all query-time pruning needs.)"""
+    seqs = enumerate_pairs(g, k)
+    for c, ps in part.classes.items():
+        sig0 = frozenset(seqs.get(ps[0], frozenset()))
+        cyc0 = ps[0][0] == ps[0][1]
+        for p in ps[1:]:
+            if frozenset(seqs.get(p, frozenset())) != sig0:
+                return False
+            if (p[0] == p[1]) != cyc0:
+                return False
+    return True
+
+
 def random_cpq(rng: np.random.Generator, g: LabeledGraph, max_depth: int = 3) -> CPQ:
     """Random CPQ generator for property tests."""
     if max_depth == 0 or rng.random() < 0.35:
@@ -356,3 +452,152 @@ def random_cpq(rng: np.random.Generator, g: LabeledGraph, max_depth: int = 3) ->
     if rng.random() < 0.5:
         return Join(l, r)
     return Conj(l, r)
+
+
+# ---------------------------------------------------------------------- #
+# RPQ reference evaluator — Thompson NFA product (ground truth for
+# core.rpq's Glushkov/fixpoint path, exactly like cpq_eval gates CPQ).
+#
+# Deliberately a DIFFERENT construction and evaluation strategy from the
+# engine: ε-transitions (Thompson) instead of a position automaton, and
+# single-edge product-graph BFS per source instead of a semi-naive
+# fixpoint of k-truncated per-sequence lookups — a shared bug would have
+# to live in two unrelated algorithms to survive the differential gate.
+# ---------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class _ThompsonNFA:
+    """ε-NFA: ``eps[s]`` = ε-successors, ``trans[s]`` = {label: set of
+    successors}; one start, one accept state."""
+
+    eps: list
+    trans: list
+    start: int
+    accept: int
+
+
+def _thompson_nfa(q, n_labels: int) -> _ThompsonNFA:
+    from .rpq import RAlt, RConcat, RInv, ROpt, RPlus, RStar, RSym
+
+    eps: list[set] = []
+    trans: list[dict] = []
+
+    def new_state() -> int:
+        eps.append(set())
+        trans.append({})
+        return len(eps) - 1
+
+    def inv_push(node, flip: bool):
+        """Independent inverse push-down: a flipped subtree reverses
+        concatenation order and maps each label through the closure
+        involution l <-> l + n_labels."""
+        if isinstance(node, RSym):
+            lbl = (node.label + n_labels) % (2 * n_labels) if flip \
+                else node.label
+            return RSym(int(lbl))
+        if isinstance(node, RInv):
+            return inv_push(node.inner, not flip)
+        if isinstance(node, RConcat):
+            l, r = inv_push(node.lhs, flip), inv_push(node.rhs, flip)
+            return RConcat(r, l) if flip else RConcat(l, r)
+        if isinstance(node, RAlt):
+            return RAlt(inv_push(node.lhs, flip), inv_push(node.rhs, flip))
+        if isinstance(node, (RStar, RPlus, ROpt)):
+            return type(node)(inv_push(node.inner, flip))
+        raise TypeError(f"not an RPQ node: {node!r}")
+
+    def frag(node) -> tuple[int, int]:
+        if isinstance(node, RSym):
+            s, a = new_state(), new_state()
+            trans[s].setdefault(int(node.label), set()).add(a)
+            return s, a
+        if isinstance(node, RConcat):
+            s1, a1 = frag(node.lhs)
+            s2, a2 = frag(node.rhs)
+            eps[a1].add(s2)
+            return s1, a2
+        if isinstance(node, RAlt):
+            s, a = new_state(), new_state()
+            for side in (node.lhs, node.rhs):
+                si, ai = frag(side)
+                eps[s].add(si)
+                eps[ai].add(a)
+            return s, a
+        if isinstance(node, RStar):
+            s, a = new_state(), new_state()
+            si, ai = frag(node.inner)
+            eps[s] |= {si, a}
+            eps[ai] |= {si, a}
+            return s, a
+        if isinstance(node, RPlus):
+            si, ai = frag(node.inner)
+            eps[ai].add(si)
+            return si, ai
+        if isinstance(node, ROpt):
+            s, a = new_state(), new_state()
+            si, ai = frag(node.inner)
+            eps[s] |= {si, a}
+            eps[ai].add(a)
+            return s, a
+        raise TypeError(f"not a normalized RPQ node: {node!r}")
+
+    start, accept = frag(inv_push(q, False))
+    return _ThompsonNFA(eps=eps, trans=trans, start=start, accept=accept)
+
+
+def rpq_eval(g: LabeledGraph, q, srcs=None, dsts=None) -> set[tuple[int, int]]:
+    """⟦q⟧_G for an RPQ ``q`` (:mod:`repro_torch.core.rpq` AST): all (v, u)
+    with a path v→u whose label sequence the expression accepts (ε
+    accepted ⇒ the identity pairs, matching ``cpq_eval(Identity)``).
+    ``srcs``/``dsts`` restrict the endpoints (the Cypher pins)."""
+    nfa = _thompson_nfa(q, g.n_labels)
+    out_edges: dict[int, list] = defaultdict(list)
+    for s, d, l in zip(g.src, g.dst, g.lbl):
+        out_edges[int(s)].append((int(d), int(l)))
+    seeds = range(g.n_vertices) if srcs is None else sorted(set(srcs))
+    results: set[tuple[int, int]] = set()
+    for v in seeds:
+        seen = set()
+        stack = [(v, nfa.start)]
+        while stack:
+            u, s = stack.pop()
+            if (u, s) in seen:
+                continue
+            seen.add((u, s))
+            for t in nfa.eps[s]:
+                stack.append((u, t))
+            for (w, l) in out_edges[u]:
+                for t in nfa.trans[s].get(l, ()):
+                    stack.append((w, t))
+        for (u, s) in seen:
+            if s == nfa.accept:
+                results.add((v, u))
+    if dsts is not None:
+        pins = set(dsts)
+        results = {(v, u) for v, u in results if u in pins}
+    return results
+
+
+def random_rpq(rng: np.random.Generator, g: LabeledGraph,
+               max_depth: int = 3):
+    """Random RPQ generator for property tests (star/plus/optional kept
+    shallow — macro-edge fan-out is exponential in nesting)."""
+    from .rpq import RAlt, RConcat, RInv, ROpt, RPlus, RStar, RSym
+
+    if max_depth == 0 or rng.random() < 0.3:
+        return RSym(int(rng.integers(0, g.alphabet_size)))
+    r = rng.random()
+    if r < 0.30:
+        return RConcat(random_rpq(rng, g, max_depth - 1),
+                       random_rpq(rng, g, max_depth - 1))
+    if r < 0.50:
+        return RAlt(random_rpq(rng, g, max_depth - 1),
+                    random_rpq(rng, g, max_depth - 1))
+    if r < 0.65:
+        return RStar(random_rpq(rng, g, max_depth - 1))
+    if r < 0.75:
+        return RPlus(random_rpq(rng, g, max_depth - 1))
+    if r < 0.87:
+        return ROpt(random_rpq(rng, g, max_depth - 1))
+    return RInv(random_rpq(rng, g, max_depth - 1))

@@ -2,8 +2,9 @@
 traffic, over the port's :class:`~repro_torch.core.engine.Engine`.
 
 A copy of the reference package's ``core/service.py`` on the port's
-engine, maintainer and adaptation controller; its ``checkpoint`` /
-``restore`` wait for the port of ``core/lifecycle.py``.
+engine, maintainer and adaptation controller, with its ``checkpoint`` /
+``restore`` over the port's ``core/lifecycle.py`` (one checkpoint format
+for both packages).
 
 * **request queue** — ``submit`` enqueues; nothing touches the device
   until a flush, so concurrent requests of the same plan shape ride one
@@ -44,10 +45,13 @@ to :data:`~repro_torch.core.workload.DEFAULT_TENANT`), and
   estimation) overlaps it before the earlier round is harvested.  A
   request whose query is already executing in the previous round joins
   that round's result (``ServiceStats.cross_round_joins``).
-* **SLO-aware shedding** — with ``slo_ns`` set, a submit is priced at
-  its plan's predicted dispatch cost (:meth:`Engine.predict_cost_ns`).
-  The port has no calibrated cost table yet, so every prediction is 0.0
-  and the gate is inert, as the reference's is without a table.
+* **SLO-aware shedding** — with ``slo_ns`` set (one budget, or a
+  per-tenant dict) and a calibrated engine (``cost_table``), a submit is
+  priced at its plan's predicted dispatch cost
+  (:meth:`Engine.predict_cost_ns`); when the queue's predicted backlog
+  plus this request exceeds the tenant's budget, the request is shed
+  with reason ``"slo"``.  Without a cost table every prediction is 0.0
+  and the gate is inert.
 * **union dispatch** — with ``union=True`` the engine fuses leftover
   sub-``min_bucket`` shape buckets into one union-executable dispatch
   (``core.backend.run_union_batch``).
@@ -234,6 +238,7 @@ class QueryService:
                     f"the index is k={maintainer.index.k} — its "
                     "proposals could never be indexed")
         self._next_rid = 0
+        self._ckpt_step = 0  # next checkpoint step id (monotone)
         self._planned_since_adapt = 0
         self._rungs_seen = engine.telemetry.retry_rungs
         self._flushing = False  # reentrancy guard for the pipelined drain
@@ -641,6 +646,63 @@ class QueryService:
         """O(1) invalidation: results *and* plans are keyed by epoch, so
         stale entries become unreachable and age out of their LRUs."""
         self.graph_epoch += 1
+
+    # ------------------------------------------------------------------ #
+    # lifecycle: checkpoint / warm restart (core.lifecycle)
+    # ------------------------------------------------------------------ #
+
+    def checkpoint(self, ckpt_dir: str, step: int | None = None) -> int:
+        """Snapshot the full serving state as one atomic committed step;
+        returns the step id.
+
+        Consistency: the queue is drained first — the SAME
+        ``_drain_updates`` one-batch round every query drain runs — so
+        the snapshot is taken at a quiescent epoch where device arrays,
+        host mirror, interest set and sketch all agree.  A crash during
+        the write leaves the previous committed step intact (the
+        checkpoint layer's rename-commit + LATEST-pointer contract)."""
+        from . import lifecycle  # lazy: service must import without it
+
+        self.flush()  # drain pending writes AND reads at one epoch
+        if step is None:
+            step = self._ckpt_step
+        # a cluster backend (none in this package yet) checkpoints through
+        # a barrier before the snapshot is cut, and learns the committed
+        # step after it: both hooks are optional
+        quiesce = getattr(self.engine.backend, "quiesce", None)
+        if quiesce is not None:
+            quiesce(step)
+        leaves, extra = lifecycle.service_leaves(self)
+        lifecycle.save_checkpoint(ckpt_dir, step, leaves, extra=extra)
+        committed = getattr(self.engine.backend, "checkpoint_committed",
+                            None)
+        if committed is not None:
+            committed(ckpt_dir, step)
+        self._ckpt_step = step + 1
+        return step
+
+    def restore(self, ckpt_dir: str, step: int | None = None) -> int:
+        """Warm-restart THIS service from a committed checkpoint (latest
+        unless ``step`` pins one): rebind the engine to the restored
+        arrays (pre-warmed statistics), swap in the restored mirror and
+        adapter, and bump the epoch PAST both the live one and the
+        checkpoint's — every cached answer and plan from any pre-restore
+        state becomes unreachable in O(1).  In-flight reads/writes are
+        flushed first so they complete against the state they targeted.
+        Returns the restored step id."""
+        from . import lifecycle
+
+        self.flush()  # complete in-flight work on the pre-restore state
+        state = lifecycle.load_state(ckpt_dir, step, device=self.engine.device)
+        self.engine.rebind(state.index, stats=state.stats)
+        self.maintainer = state.maintainer
+        self.adapter = state.adapter
+        self.graph_epoch = max(self.graph_epoch, state.epoch) + 1
+        self._ckpt_step = max(self._ckpt_step, state.step + 1)
+        self._pending_updates = []
+        self._planned_since_adapt = 0
+        self._rungs_seen = self.engine.telemetry.retry_rungs
+        return state.step
 
     # ------------------------------------------------------------------ #
     # the adaptation loop (core.workload)

@@ -8,11 +8,16 @@ O(1) per-sequence cardinality queries via two prefix sums over the l2c
 rows — the raw material of the cost-based optimizer
 (:mod:`repro_torch.core.optimizer`) and of the engine's capacity estimator.
 
-Two constructors:
+Three constructors:
 
 * :meth:`IndexStats.from_index` — a device :class:`~repro_torch.core.index.CPQxIndex`
   (one device sync; called by ``Engine.rebind``);
-* :meth:`IndexStats.from_host_arrays` — raw numpy arrays.
+* :meth:`IndexStats.from_host_arrays` — raw numpy arrays;
+* :meth:`IndexStats.from_oracle` — the dict-form ``oracle.Index`` mirror
+  (or a :class:`~repro_torch.core.maintenance.MaintainableIndex`'s).
+
+The endpoint cache travels in checkpoints (:meth:`export_endpoints` /
+:meth:`seed_endpoints`), so a restored engine plans warm.
 
 The view also carries the *pair columns* of ``I_c2p`` (when
 the constructor has them), which unlock per-sequence **endpoint
@@ -131,6 +136,45 @@ class IndexStats:
             c2p_fetch=lambda: (a.c2p_v.cpu().numpy(), a.c2p_u.cpu().numpy()),
         )
 
+    @classmethod
+    def from_oracle(cls, oindex, n_vertices: int) -> "IndexStats":
+        """Build the same view from the dict-form ``oracle.Index`` (or a
+        :class:`~repro_torch.core.maintenance.MaintainableIndex` mirror).  Class
+        ids are densified in ascending order, exactly like
+        ``index.from_host_mirror``, so the derived statistics match a
+        flush of the same mirror."""
+        ids = sorted(c for c, ps in oindex.c2p.items() if ps)
+        remap = {c: i for i, c in enumerate(ids)}
+        sizes = np.array([len(oindex.c2p[c]) for c in ids] or [0], np.int64)
+        cyclic = np.array(
+            [1 if oindex.cyclic[c] else 0 for c in ids] or [0], np.int64)
+        seq_ranges: dict = {}
+        flat: list[int] = []
+        for s in sorted(tuple(t) for t in oindex.l2c):
+            lo = len(flat)
+            flat.extend(sorted(remap[c] for c in oindex.l2c[s] if c in remap))
+            seq_ranges[s] = (lo, len(flat))
+        c2p = {c: list(oindex.c2p[c]) for c in ids}  # snapshot: the
+        # mirror may mutate after this view is taken
+
+        def fetch():
+            rows = [p for c in ids for p in c2p[c]]
+            return (np.array([p[0] for p in rows] or [0], np.int64),
+                    np.array([p[1] for p in rows] or [0], np.int64))
+
+        return cls.from_host_arrays(
+            n_vertices=n_vertices,
+            n_classes=len(ids),
+            total_pairs=int(sizes.sum()) if ids else 0,
+            seq_ranges=seq_ranges,
+            class_starts=np.concatenate([np.zeros(1, np.int64),
+                                         np.cumsum(sizes)]),
+            l2c_cls=np.asarray(flat, np.int64),
+            l2c_count=len(flat),
+            class_cyclic=cyclic,
+            c2p_fetch=fetch,
+        )
+
     # ------------------------------------------------------------------ #
     # O(1) per-sequence cardinalities (all exact)
     # ------------------------------------------------------------------ #
@@ -199,3 +243,33 @@ class IndexStats:
                 max_in=int(in_cnt.max(initial=0)))
         self._endpoints[seq] = res
         return res
+
+    # ------------------------------------------------------------------ #
+    # checkpoint codec for the endpoint cache — a restored engine starts
+    # with the donor's priced sequences pre-warmed, so the first query
+    # after a warm restart plans without a device pull.
+    # ------------------------------------------------------------------ #
+
+    def export_endpoints(self) -> np.ndarray | None:
+        """Cached ``seq_endpoints`` results as int64 rows
+        ``[seq padded with -1 | d_src d_dst max_out max_in]``; None when
+        nothing has been priced yet."""
+        if not self._endpoints:
+            return None
+        width = max(len(s) for s in self._endpoints)
+        rows = [list(s) + [-1] * (width - len(s)) + list(e)
+                for s, e in self._endpoints.items()]
+        return np.asarray(rows, np.int64).reshape(-1, width + 4)
+
+    def seed_endpoints(self, rows) -> None:
+        """Pre-warm the endpoint cache from :meth:`export_endpoints` rows.
+        Only sequences still present in this snapshot are accepted — a
+        stale row from another index cannot poison the cache."""
+        rows = np.asarray(rows, np.int64)
+        if rows.size == 0:
+            return
+        for row in rows.reshape(rows.shape[0], -1):
+            seq = tuple(int(x) for x in row[:-4] if x >= 0)
+            if seq in self.seq_ranges:
+                self._endpoints[seq] = SeqEndpoints(
+                    *(int(x) for x in row[-4:]))

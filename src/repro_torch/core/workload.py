@@ -55,13 +55,16 @@ can never change answers (Sec. V-C: any interest set is
 answer-preserving; only pruning power and index size move).
 
 Host-side only: no torch import.  A copy of the reference package's
-``core/workload.py`` without its checkpoint codec (``export_state`` /
-``from_state``), which waits for the port of ``core/lifecycle.py``.
+``core/workload.py``; its checkpoint codec (``export_state`` /
+``from_state``) writes the reference's leaves, so a checkpoint of either
+package restores the adaptation loop in the other (``core.lifecycle``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 from .optimizer import estimate_plan
 from .query import CPQ, Conj, Edge, Identity, Join, _flatten_join
@@ -221,6 +224,34 @@ class WorkloadSketch:
                 for item, c in self.counts.items() if c >= min_count]
         rows.sort(key=lambda r: (-r[1], repr(r[0])))
         return rows
+
+    # --------------------- checkpoint codec ------------------------- #
+    # Row order == dict insertion order: the eviction tie-break walks
+    # insertion order, so a restored sketch must replay it exactly to
+    # evict the same victims the donor would.
+
+    def export_state(self, width: int) -> dict:
+        """Flat numpy snapshot; ``width`` pads every item (a label-seq
+        tuple of length <= width) to fixed row size."""
+        rows = [list(item) + [-1.0] * (width - len(item))
+                + [self.counts[item], self.errors[item]]
+                for item in self.counts]
+        return {
+            "meta": np.array([self.capacity, self.observed], np.float64),
+            "rows": np.asarray(rows, np.float64).reshape(-1, width + 2),
+        }
+
+    @classmethod
+    def from_state(cls, state: dict) -> "WorkloadSketch":
+        meta = np.asarray(state["meta"], np.float64).ravel()
+        sk = cls(capacity=int(meta[0]))
+        sk.observed = float(meta[1])
+        rows = np.asarray(state["rows"], np.float64)
+        for row in rows.reshape(rows.shape[0], -1):
+            item = tuple(int(x) for x in row[:-2] if x >= 0)
+            sk.counts[item] = float(row[-2])
+            sk.errors[item] = float(row[-1])
+        return sk
 
 
 # ---------------------------------------------------------------------- #
@@ -458,3 +489,63 @@ class AdaptationController:
         for sk in self.sketches.values():
             sk.decay(cfg.decay)
         return ops
+
+    # --------------------- checkpoint codec ------------------------- #
+
+    def export_state(self) -> dict:
+        """Flat numpy snapshot of the whole adaptation loop — per-tenant
+        sketches, round counter, dwell protections, and config — so a
+        restored replica keeps adapting where the donor stopped (no
+        cold-start thrash of the interest set).  Tenant names travel as
+        one newline-joined UTF-8 byte leaf (names may not contain
+        newlines); sketch leaves are keyed ``sketch<i>.*`` in sorted
+        tenant order."""
+        cfg = self.cfg
+        dwell_rows = [list(s) + [-1] * (self.k - len(s)) + [int(r)]
+                      for s, r in self._dwell.items()]
+        names = sorted(self.sketches)
+        out = {
+            "meta": np.array(
+                [self.k, self.sketch_capacity, self.rounds, len(names)],
+                np.int64),
+            "config": np.array(
+                [cfg.budget,
+                 -1.0 if cfg.pair_budget is None else cfg.pair_budget,
+                 cfg.min_count, cfg.min_benefit, cfg.swap_margin,
+                 cfg.dwell, cfg.decay], np.float64),
+            "tenants": np.frombuffer(
+                "\n".join(names).encode("utf-8"), np.uint8).copy(),
+            "dwell": np.asarray(dwell_rows, np.int64).reshape(-1, self.k + 1),
+        }
+        for i, t in enumerate(names):
+            sk = self.sketches[t].export_state(self.k)
+            out[f"sketch{i}.meta"] = sk["meta"]
+            out[f"sketch{i}.rows"] = sk["rows"]
+        return out
+
+    @classmethod
+    def from_state(cls, state: dict) -> "AdaptationController":
+        meta = np.asarray(state["meta"], np.int64).ravel()
+        k, cap, rounds = (int(x) for x in meta[:3])
+        c = np.asarray(state["config"], np.float64).ravel()
+        cfg = AdaptationConfig(
+            budget=int(c[0]),
+            pair_budget=None if c[1] < 0 else float(c[1]),
+            min_count=float(c[2]), min_benefit=float(c[3]),
+            swap_margin=float(c[4]), dwell=int(c[5]), decay=float(c[6]))
+        ctl = cls(k, sketch_capacity=cap, config=cfg)
+        ctl.rounds = rounds
+        if "sketch.meta" in state:  # pre-multi-tenant layout
+            ctl.sketches[DEFAULT_TENANT] = WorkloadSketch.from_state(
+                {"meta": state["sketch.meta"], "rows": state["sketch.rows"]})
+        else:
+            raw = bytes(np.asarray(state["tenants"], np.uint8)).decode("utf-8")
+            for i, t in enumerate(raw.split("\n") if raw else []):
+                ctl.sketches[t] = WorkloadSketch.from_state(
+                    {"meta": state[f"sketch{i}.meta"],
+                     "rows": state[f"sketch{i}.rows"]})
+        dwell = np.asarray(state["dwell"], np.int64).reshape(-1, k + 1)
+        for row in dwell:
+            seq = tuple(int(x) for x in row[:k] if x >= 0)
+            ctl._dwell[seq] = int(row[k])
+        return ctl

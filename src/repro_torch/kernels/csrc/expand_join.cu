@@ -26,7 +26,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kSentinel = 0x7FFFFFFF;
 
 __global__ void expand_join_gather_kernel(
@@ -66,15 +65,21 @@ __global__ void expand_join_gather_kernel(
 
 }  // namespace
 
+// `threads` is the block size: a multiple of 32 in [32, 1024].  Returns the
+// CUDA error of the launch.
 extern "C" int repro_expand_join_gather(const int* ends, const int* lo,
                                         const int* a_payload, const int* b_v,
                                         const int* b_u, const int* total,
                                         int* out_v, int* out_u, int* out_a,
                                         int lanes, int n_a, int n_b,
-                                        int out_capacity, void* stream) {
+                                        int out_capacity, int threads,
+                                        void* stream) {
   if (lanes <= 0 || out_capacity <= 0) return 0;
-  const dim3 grid((out_capacity + kThreads - 1) / kThreads, lanes);
-  expand_join_gather_kernel<<<grid, kThreads, 0,
+  if (threads < 32 || threads > 1024 || threads % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((out_capacity + threads - 1) / threads, lanes);
+  expand_join_gather_kernel<<<grid, threads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       ends, lo, a_payload, b_v, b_u, total, out_v, out_u, out_a, n_a, n_b,
       out_capacity);

@@ -15,7 +15,8 @@
 // the latency of the search: a binary search is a chain of log2(count) + 1
 // dependent loads, and from device memory each link costs an L2 (or HBM)
 // round trip.  The design: blockIdx.y is the lane and blockIdx.x a chunk of
-// 256 queries, one thread a query, its query loaded first so that the load
+// blockDim.x queries (the wrapper's `threads`, 256 unless a tuned cost table
+// says otherwise), one thread a query, its query loaded first so that the load
 // overlaps what follows.  When the haystack fits the shared-memory budget
 // that the wrapper computes (sorted_intersect.launch_plan), each block
 // first copies the lane's live ids hay[b, :count] (not the SENTINEL
@@ -35,7 +36,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxSharedBytes = 48 * 1024;  // dynamic shared memory without opt-in
 
 // First position in [0, count) whose value is >= q (count when none), in
@@ -61,7 +61,8 @@ __device__ __forceinline__ int member(const int* h, int count, int steps,
 }
 
 // Copies h[0:count] into s[0:count]: a scalar head up to the first 16-byte
-// boundary of h, 16-byte loads for the body, a scalar tail.
+// boundary of h, 16-byte loads for the body, a scalar tail, every loop
+// strided by the block's own size.
 __device__ __forceinline__ void stage(const int* __restrict__ h, int count,
                                       int* s) {
   const int head_bytes =
@@ -70,7 +71,7 @@ __device__ __forceinline__ void stage(const int* __restrict__ h, int count,
   if (threadIdx.x < head) s[threadIdx.x] = __ldg(h + threadIdx.x);
   const int n4 = (count - head) >> 2;
   const int4* h4 = reinterpret_cast<const int4*>(h + head);
-  for (int k = threadIdx.x; k < n4; k += kThreads) {
+  for (int k = threadIdx.x; k < n4; k += blockDim.x) {
     const int4 v = __ldg(h4 + k);
     int* d = s + head + 4 * k;
     d[0] = v.x;
@@ -78,7 +79,7 @@ __device__ __forceinline__ void stage(const int* __restrict__ h, int count,
     d[2] = v.z;
     d[3] = v.w;
   }
-  for (int k = head + 4 * n4 + threadIdx.x; k < count; k += kThreads) {
+  for (int k = head + 4 * n4 + threadIdx.x; k < count; k += blockDim.x) {
     s[k] = __ldg(h + k);
   }
 }
@@ -96,7 +97,7 @@ __global__ void sorted_member_mask_kernel(const int* __restrict__ hay,
   int count = __ldg(hay_count + lane);
   count = count < 0 ? 0 : (count > n_hay ? n_hay : count);
   const int steps = count > 0 ? 32 - __clz(count) : 0;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const long long at = lane * n_q + i;
   const int q = i < n_q ? __ldg(queries + at) : 0;
   if (staged) {
@@ -113,18 +114,21 @@ __global__ void sorted_member_mask_kernel(const int* __restrict__ hay,
 // hay (lanes, n_hay), hay_count (lanes,), queries and out (lanes, n_q): int32,
 // row-major.  shared_bytes > 0 stages each lane's haystack in that many bytes
 // of dynamic shared memory (at least 4 * n_hay, at most 48 KB); 0 searches
-// it in device memory.  Returns the CUDA error of the launch.
+// it in device memory.  `threads` is the block size: a multiple of 32 in
+// [32, 1024].  Returns the CUDA error of the launch.
 extern "C" int repro_sorted_member_mask(const int* hay, const int* hay_count,
                                         const int* queries, int* out,
                                         int lanes, int n_hay, int n_q,
-                                        int shared_bytes, void* stream) {
+                                        int shared_bytes, int threads,
+                                        void* stream) {
   if (lanes <= 0 || n_q <= 0) return 0;
   if (shared_bytes < 0 || shared_bytes > kMaxSharedBytes ||
-      (shared_bytes > 0 && shared_bytes < 4LL * n_hay)) {
+      (shared_bytes > 0 && shared_bytes < 4LL * n_hay) || threads < 32 ||
+      threads > 1024 || threads % 32 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((n_q + kThreads - 1) / kThreads, lanes);
-  sorted_member_mask_kernel<<<grid, kThreads, shared_bytes,
+  const dim3 grid((n_q + threads - 1) / threads, lanes);
+  sorted_member_mask_kernel<<<grid, threads, shared_bytes,
                               static_cast<cudaStream_t>(stream)>>>(
       hay, hay_count, queries, out, n_hay, n_q, shared_bytes > 0);
   return static_cast<int>(cudaGetLastError());

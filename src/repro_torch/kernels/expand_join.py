@@ -4,7 +4,9 @@ expansion gather, the ``I_c2p`` materialization hot spot.
 Replaces the TPU kernel ``repro/kernels/expand_join.py``
 (``expand_join_gather``).  One thread per output row binary-searches its
 lane's inclusive-cumsum ``ends`` and gathers the build row and the probe
-payload; the grid is (ceil(out_capacity / 256), lanes).  ``launches``
+payload; the grid is (ceil(out_capacity / threads), lanes), ``threads``
+a block (:data:`DEFAULT_THREADS` unless a tuned cost table names another,
+``ops.set_tuned_blocks``).  ``launches``
 counts the kernel launches of this process (the plain version in
 ``ref.py`` does not count).
 """
@@ -17,6 +19,9 @@ import torch
 
 from . import build
 
+# Threads a block when no tuned cost table is active.
+DEFAULT_THREADS = 256
+
 launches = 0
 
 
@@ -25,7 +30,7 @@ def _lib():
     if lib.repro_expand_join_gather.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.repro_expand_join_gather.argtypes = [p] * 9 + [i, i, i, i, p]
+        lib.repro_expand_join_gather.argtypes = [p] * 9 + [i, i, i, i, i, p]
         lib.repro_expand_join_gather.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
@@ -33,10 +38,12 @@ def _lib():
 
 
 def expand_join_gather(ends, lo, a_payload, b_v, b_u, total,
-                       out_capacity: int):
+                       out_capacity: int, threads: int = DEFAULT_THREADS):
     """``ends``/``lo``/``a_payload`` (B, n_a), ``b_v``/``b_u`` (n_b,),
     ``total`` (B,): contiguous int32 on one CUDA device.  Returns three
-    (B, out_capacity) int32 tensors (see ``ref.expand_join_gather``)."""
+    (B, out_capacity) int32 tensors (see ``ref.expand_join_gather``).
+    ``threads`` a block: a multiple of 32 in [32, 1024] (the kernel
+    refuses any other, and the launch raises)."""
     global launches
     for name, x in (("ends", ends), ("lo", lo), ("a_payload", a_payload)):
         build.check_i32(name, x, 2)
@@ -64,7 +71,7 @@ def expand_join_gather(ends, lo, a_payload, b_v, b_u, total,
             ends.data_ptr(), lo.data_ptr(), a_payload.data_ptr(),
             b_v.data_ptr(), b_u.data_ptr(), total.data_ptr(),
             *(o.data_ptr() for o in outs), lanes, n_a, n_b, out_capacity,
-            stream)
+            threads, stream)
     if err != 0:
         raise RuntimeError("expand_join_gather launch failed: "
                            + lib.repro_error_string(err).decode())

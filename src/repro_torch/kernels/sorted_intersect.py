@@ -2,8 +2,10 @@
 membership, the class-space CONJUNCTION hot spot (Prop. 4.1).
 
 Replaces the TPU kernel ``repro/kernels/sorted_intersect.py``
-(``sorted_member_mask``).  One thread per query, the grid (ceil(n_q / 256),
-lanes); nothing is padded to blocks.  :func:`launch_plan` decides where a
+(``sorted_member_mask``).  One thread per query, the grid (ceil(n_q /
+threads), lanes) with ``threads`` a block (:data:`DEFAULT_THREADS` unless a
+tuned cost table names another, ``ops.set_tuned_blocks``); nothing is
+padded to blocks.  :func:`launch_plan` decides where a
 lane's haystack is searched: staged in shared memory when it fits the
 budget, in device memory when it is larger, or small enough to sit in one
 L1 line (two paths of the one kernel).
@@ -29,6 +31,8 @@ SHARED_BUDGET = 24 * 1024
 # A haystack within one 128-byte L1 line is searched in place: after its
 # first miss every step hits L1, so a copy would save nothing.
 SHARED_FLOOR = 128
+# Threads a block when no tuned cost table is active.
+DEFAULT_THREADS = 256
 
 launches = 0
 
@@ -38,7 +42,7 @@ def _lib():
     if lib.repro_sorted_member_mask.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.repro_sorted_member_mask.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.repro_sorted_member_mask.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.repro_sorted_member_mask.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
@@ -58,10 +62,12 @@ def launch_plan(n_hay: int) -> tuple[str, int]:
 
 
 def sorted_member_mask(hay: torch.Tensor, hay_count: torch.Tensor,
-                       queries: torch.Tensor) -> torch.Tensor:
+                       queries: torch.Tensor,
+                       threads: int = DEFAULT_THREADS) -> torch.Tensor:
     """(B, n_q) int32 0/1: ``queries[b, i]`` in sorted
     ``hay[b, :hay_count[b]]``.  ``hay`` (B, n_hay), ``hay_count`` (B,),
-    ``queries`` (B, n_q): contiguous int32 on one CUDA device."""
+    ``queries`` (B, n_q): contiguous int32 on one CUDA device.
+    ``threads`` a block: a multiple of 32 in [32, 1024]."""
     global launches
     build.check_i32("hay", hay, 2)
     build.check_i32("hay_count", hay_count, 1)
@@ -77,23 +83,26 @@ def sorted_member_mask(hay: torch.Tensor, hay_count: torch.Tensor,
     out = torch.empty_like(queries)
     if lanes == 0 or n_q == 0:
         return out
-    launch(hay, hay_count, queries, out, launch_plan(n_hay)[1])
+    launch(hay, hay_count, queries, out, launch_plan(n_hay)[1], threads)
     launches += 1
     return out
 
 
-def launch(hay, hay_count, queries, out, shared_bytes: int) -> None:
+def launch(hay, hay_count, queries, out, shared_bytes: int,
+           threads: int = DEFAULT_THREADS) -> None:
     """One launch on checked tensors: ``shared_bytes`` > 0 stages each
     lane's haystack in that many bytes (4 * n_hay up to 48 KB), 0 searches
-    it in place.  :func:`sorted_member_mask` takes ``launch_plan``'s bytes;
-    a measurement may time either path of the same input."""
+    it in place; ``threads`` a block.  :func:`sorted_member_mask` takes
+    ``launch_plan``'s bytes; a measurement may time either path of the
+    same input.  The kernel refuses a block size that is not a multiple of
+    32 in [32, 1024], and the launch raises."""
     lib = _lib()
     with torch.cuda.device(hay.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_sorted_member_mask(
             hay.data_ptr(), hay_count.data_ptr(), queries.data_ptr(),
             out.data_ptr(), hay.shape[0], hay.shape[1], queries.shape[1],
-            shared_bytes, stream)
+            shared_bytes, threads, stream)
     if err != 0:
         raise RuntimeError("sorted_member_mask launch failed: "
                            + lib.repro_error_string(err).decode())

@@ -1,6 +1,6 @@
-"""Guards of the port's boundaries: it imports neither JAX nor the JAX
-package; its entry points never fall back to the CPU on their own; its
-kernel dispatch has no switch."""
+"""Guards of the port's boundaries: it imports neither JAX, nor the JAX
+package, nor ``ml_dtypes`` (a JAX dependency); its entry points never fall
+back to the CPU on their own; its kernel dispatch has no switch."""
 
 import ast
 import os
@@ -43,7 +43,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'jaxlib' or m == 'repro' or m.startswith('repro.'))\n"
+        "             or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')\n"
+        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
         "print(repr(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
@@ -55,7 +56,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "repro_torch.core.oracle", "repro_torch.kernels.fingerprint",
               "repro_torch.core.service", "repro_torch.core.rpq",
               "repro_torch.core.cypher", "repro_torch.core.workload",
-              "repro_torch.kernels.segment_softmax", "repro_torch.models.gnn"):
+              "repro_torch.kernels.segment_softmax", "repro_torch.models.gnn",
+              "repro_torch.core.baselines", "repro_torch.core.costmodel",
+              "repro_torch.core.lifecycle", "repro_torch.kernels.autotune",
+              "repro_torch.checkpoint.checkpoint"):
         assert m in mods
 
 
@@ -71,7 +75,8 @@ def test_no_jax_or_repro_imports_in_the_source():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "repro"), (path, name)
+                assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+                    (path, name)
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
@@ -106,6 +111,35 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         convert.index_from_numpy(host, 2, g.n_vertices)
     assert convert.index_from_numpy(host, 2, g.n_vertices,
                                     device="cpu").device.type == "cpu"
+
+
+def test_new_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch,
+                                                         tmp_path):
+    """The baselines, the cost model, the autotuner and the lifecycle
+    raise without a card unless the caller asks for the CPU by name."""
+    from repro_torch.core import baselines, costmodel, lifecycle
+    from repro_torch.kernels import autotune
+
+    g = example_graph()
+    index = tindex.build(g, 2, device="cpu")
+    index.save(str(tmp_path))
+    path = baselines.build_path(g, 2, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: baselines.build_path(g, 2),
+                 lambda: baselines.PathEngine(path),
+                 lambda: costmodel.calibrate(rungs=(64,), repeats=1),
+                 lambda: autotune.autotune([64]),
+                 lambda: tindex.CPQxIndex.restore(str(tmp_path)),
+                 lambda: lifecycle.restore_index(str(tmp_path)),
+                 lambda: lifecycle.load_state(str(tmp_path)),
+                 lambda: lifecycle.restore_service(str(tmp_path))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert baselines.PathEngine(path, device="cpu").device.type == "cpu"
+    assert lifecycle.restore_index(str(tmp_path), device="cpu").device.type \
+        == "cpu"
+    with pytest.raises(ValueError, match="index lies on cpu"):
+        baselines.PathEngine(path, device="meta")
 
 
 def test_engine_never_moves_an_index():
