@@ -24,19 +24,27 @@ Phases, each printed on its own lines:
 5. queries     — the 12 templates with seeded labels through Engine.execute and
                  Engine.execute_batch (16 same-template queries a batch), every
                  answer checked against a scipy.sparse reference written here;
+                 each plan runs as a CUDA graph captured once per key, and
+                 every replay of the first pass is held bit for bit to the
+                 eager walker (run_plan_ops called directly on the same
+                 inputs), with one key replayed for other lookup ranges and
+                 two batches of one key in flight at once; the same draws
+                 through an eager engine give the same-run yardstick;
 6. iacpqx      — iaCPQx of the same graph over six seeded 2-sequences, and the
                  same queries through it;
 7. maintenance — the lazily maintained host mirror of CPQx: three rounds of
                  100 mixed updates, each applied, flushed to the card and
-                 rebound, its answers checked, beside a full rebuild; then one
-                 interest round on an iaCPQx mirror;
+                 rebound (the old backend's graphs dropped), its answers
+                 checked, beside a full rebuild; then one interest round on an
+                 iaCPQx mirror;
 8. serving     — a QueryService (union dispatch, admission control) over the
                  CPQx engine of phase 4, fed phase 5's draws by two tenants in
                  bursts past its queue bound; then a second service with the
                  write path and the adaptation loop over phase 7's iaCPQx
                  mirror, fed a drifting two-tenant stream and one batch of 100
-                 updates; answers held to the scipy reference; the write-path
-                 service is checkpointed (it is kept for phase 12);
+                 updates; answers held to the scipy reference and every
+                 replay to the eager walker; the write-path service is
+                 checkpointed (it is kept for phase 12);
 9. rpq         — the RPQ benchmark's seven Cypher texts, lowered by the port,
                  through Engine.execute_rpq (or execute) and the service,
                  held to a boolean scipy.sparse fixpoint written here;
@@ -44,23 +52,32 @@ Phases, each printed on its own lines:
                  phase-4 graph (phase 4's build caps, phase 6's interests),
                  phase 5's draws through PathEngine.execute beside CPQx's
                  times, and the index-free BFS on one draw a template;
-11. calibrate  — costmodel.calibrate and the block-size autotuner at the
-                 ladder rungs of the phase-4 engine, a calibrated Engine over
-                 phase 5's draws, online refinement, SLO shedding of the
-                 phase-8 read stream, the table's JSON round trip;
+11. calibrate  — costmodel.calibrate (each operator timed as replays of its
+                 CUDA graph) and the block-size autotuner at the ladder rungs
+                 of the phase-4 engine, a calibrated Engine over phase 5's
+                 draws (replays held to the eager walker), online refinement,
+                 SLO shedding of the phase-8 read stream, the table's JSON
+                 round trip;
 12. lifecycle  — the phase-4 index saved and restored (every field equal),
                  the write-path service checkpointed with the calibrated
                  table and restored as a cold replica (epoch, mirror,
                  adapter and answers equal), one update batch applied to
                  donor and replica alike;
-13. edge_softmax — the GNN substrate's edge softmax at the repository's graph
+13. sharded    — the phase-4 index through shard_index at 1 and 4 shards
+                 (gather_index gives it back), phase 5's draws through
+                 Engine(index, mesh=<4 in-process shards>) equal to the local
+                 engine and the reference, one batch, one overflow retry from
+                 small caps, a sharded save restored at 2 shards equal to a
+                 live reshard;
+14. edge_softmax — the GNN substrate's edge softmax at the repository's graph
                  shapes, float32 and bfloat16;
    then the kernels again, on the built index's own arrays and on the inputs
    the paths gave them, with their times.
 
-Each path (phases 4-5, 6, 7, 8's two services, 9 to 13) is driven with the
+Each path (phases 4-5, 6, 7, 8's two services, 9 to 14) is driven with the
 launch counts set to 0 just before it and read just after; a path that never
-launched one of its kernels fails.  The last two lines are the kernels' JSON
+launched one of its kernels fails.  A graph replay adds the launches its
+capture recorded, so the counts are the kernels that ran.  The last two lines are the kernels' JSON
 record and {"ok": true, "device": {...}}.  Any failure exits non-zero;
 without a CUDA card, or outside a checkout of the repository, the script
 exits non-zero before printing any result.
@@ -86,6 +103,7 @@ N_INTERESTS = 6
 K = 2
 SEED = 3
 BATCH = 16
+SHARDS = 4  # in-process shards of the sharded phase
 MAX_ANSWER = 4_194_304  # drop a draw whose reference answer is larger
 MAX_REF_FLOPS = 64_000_000  # ... or whose reference product costs more
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -370,6 +388,120 @@ def check_answers(engine, g, queries, what: str) -> None:
         if not np.array_equal(got, exp):
             fail(f"{what}: {q!r} answer ({len(got)} pairs) differs from the "
                  f"reference ({len(exp)} pairs)")
+
+
+# ---------------------------------------------------------------------- #
+# captured executables against the eager walker
+# ---------------------------------------------------------------------- #
+
+
+def eager_launches(fn):
+    """``fn()`` with the kernel launches it makes taken back out of the
+    counts: a comparison, not the path."""
+    from repro_torch.kernels import ops as kops
+
+    before = kops.launch_counts()
+    out = fn()
+    after = kops.launch_counts()
+    kops.add_launches({k: before[k] - after[k] for k in after})
+    return out
+
+
+def hold_to_eager(engine, tally: dict) -> None:
+    """While ``tally["on"]``, every dispatch of ``engine``'s backend (and of
+    each backend a rebind puts in its place) also runs the eager walker —
+    ``run_plan_ops`` or ``run_union_batch`` called directly on the same
+    inputs — and its harvest must equal the eager result lane for lane,
+    flags and rows, bit for bit.  ``tally`` counts the dispatches and lanes
+    held."""
+    import torch
+    from repro_torch.core import backend as B
+
+    def wrap(backend):
+        run_async = backend.run_batch_async
+        union_async = backend.run_union_batch_async
+        harvest = backend.harvest_batch
+
+        def up(a):
+            return torch.as_tensor(np.asarray(a, np.int32), device=backend.device)
+
+        def plan_held(shape, caps, ranges):
+            handle = run_async(shape, caps, ranges)
+            if not tally["on"]:
+                return handle
+            ref = eager_launches(lambda: B.run_plan_ops(backend.ops, shape, caps,
+                                                        up(ranges)))
+            return ("held", handle, ref)
+
+        def union_held(opcodes, caps, stack_size, step_ranges):
+            handle = union_async(opcodes, caps, stack_size, step_ranges)
+            if not tally["on"]:
+                return handle
+            ref = eager_launches(lambda: B.run_union_batch(
+                backend.ops, caps, stack_size, up(opcodes), up(step_ranges)))
+            return ("held", handle, ref)
+
+        def harvest_held(handle):
+            if handle[0] != "held":
+                return harvest(handle)
+            _, inner, (rel, overflow) = handle
+            rows, flags = harvest(inner)
+            exp_rows, exp_flags = B.CapturedBackend.harvest_batch(
+                backend, ("lanes", rel, overflow))
+            if not np.array_equal(flags, exp_flags):
+                fail("a replayed executable's overflow flags differ from the "
+                     "eager walker's")
+            for lane, (a, b) in enumerate(zip(rows, exp_rows)):
+                if (a is None) != (b is None) or (
+                        a is not None and not np.array_equal(a, b)):
+                    fail(f"a replayed executable's lane {lane} differs from "
+                         "the eager walker's")
+            tally["dispatches"] += 1
+            tally["lanes"] += len(rows)
+            return rows, flags
+
+        backend.run_batch_async = plan_held
+        backend.run_union_batch_async = union_held
+        backend.harvest_batch = harvest_held
+
+    wrap(engine.backend)
+    rebind = engine.rebind
+
+    def rebind_held(index, stats=None):
+        rebind(index, stats)
+        wrap(engine.backend)
+
+    engine.rebind = rebind_held
+
+
+def cache_line(what: str, engine) -> str:
+    """The engine's executable cache: graphs, bytes, captures and replays."""
+    st = engine.backend.executables.stats()
+    return (f"[graphs] {what}: {st['graphs']} graphs cached, "
+            f"{st['bytes'] / 2**20:.1f} MiB of a {st['max_bytes'] / 2**30:.1f} "
+            f"GiB bound; {st['captures']} captures in {st['capture_s']:.2f} s "
+            f"(warm-ups included, "
+            f"{1e3 * st['capture_s'] / max(1, st['captures']):.1f} ms each), "
+            f"{st['replays']} replays, {st['evictions']} evictions")
+
+
+def eager_engine(index):
+    """An Engine whose backend runs the walker eagerly on the card (the
+    port's backend on the card only replays graphs): the same-run
+    yardstick of the replayed times."""
+    import torch
+    from repro_torch.core.backend import LocalBackend
+    from repro_torch.core.engine import Engine
+
+    class EagerBackend(LocalBackend):
+        def _launch(self, key, fn, host_inputs):
+            return fn(*(torch.from_numpy(np.ascontiguousarray(h, np.int32))
+                        .pin_memory().to(self.device, non_blocking=True)
+                        for h in host_inputs))
+
+    engine = Engine(index)
+    engine.backend = EagerBackend(index.arrays, index.n_vertices)
+    return engine
 
 
 # ---------------------------------------------------------------------- #
@@ -953,47 +1085,166 @@ def main() -> int:
         f"or a reference product > {MAX_REF_FLOPS} multiply-adds), e.g. "
         f"{drops[:3]}")
 
-    def run_templates(engine, what):
-        """execute once per draw and execute_batch three times per template,
-        every answer held to the reference; returns (per-template record,
-        query evaluations)."""
+    def run_templates(engine, what, tally=None):
+        """Two passes over the draws, every answer held to the reference.
+        The first executes each draw once and runs each template's batch
+        once (new keys are captured here; with a ``tally`` every dispatch
+        is also held to the eager walker); the second times execute per
+        draw and execute_batch twice per template, on warm executables and
+        with nothing held.  Returns (per-template record, evaluations)."""
         n_queries = 0
         results = {}
         for name, accepted in per_template.items():
+            qs = [q for q, _ in accepted]
+            if tally is not None:
+                tally["on"] = True
+            first = []
+            for q, exp in accepted:
+                t0 = time.perf_counter()
+                got = engine.execute(q)
+                first.append(time.perf_counter() - t0)
+                if not np.array_equal(got, exp):
+                    fail(f"{what} {name} {q!r}: execute answer ({len(got)} "
+                         f"pairs) differs from the reference ({len(exp)} pairs)")
+            batch = engine.execute_batch(qs)
+            for (q, exp), got in zip(accepted, batch):
+                if not np.array_equal(got, exp):
+                    fail(f"{what} {name} {q!r}: execute_batch answer "
+                         f"differs from the reference")
+            if tally is not None:
+                tally["on"] = False
             lat = []
             for q, exp in accepted:
                 t0 = time.perf_counter()
                 got = engine.execute(q)
                 lat.append(time.perf_counter() - t0)
-                n_queries += 1
                 if not np.array_equal(got, exp):
-                    fail(f"{what} {name} {q!r}: execute answer ({len(got)} "
-                         f"pairs) differs from the reference ({len(exp)} pairs)")
-            qs = [q for q, _ in accepted]
+                    fail(f"{what} {name} {q!r}: a second execute differs")
             bt = []
-            for _ in range(3):
+            for _ in range(2):
                 t0 = time.perf_counter()
                 batch = engine.execute_batch(qs)
                 bt.append(time.perf_counter() - t0)
-                n_queries += len(qs)
                 for (q, exp), got in zip(accepted, batch):
                     if not np.array_equal(got, exp):
                         fail(f"{what} {name} {q!r}: execute_batch answer "
                              f"differs from the reference")
+            n_queries += 2 * len(qs) + 3 * len(qs)
             results[name] = dict(
-                n=len(qs), execute_ms_median=1e3 * float(np.median(lat[1:] or lat)),
-                execute_ms_first=1e3 * lat[0],
-                batch_qps=len(qs) / float(np.median(bt[1:])),
+                n=len(qs), execute_ms_median=1e3 * float(np.median(lat)),
+                execute_ms_first=1e3 * float(np.median(first)),
+                batch_qps=len(qs) / float(np.median(bt)),
                 max_answer=max(len(e) for _, e in accepted))
         for name, r in results.items():
             say(f"[{what}] {name:4s} n={r['n']:2d} execute median "
-                f"{r['execute_ms_median']:.3f} ms (first {r['execute_ms_first']:.1f} ms) "
-                f"batch {r['batch_qps']:.1f} q/s  largest answer {r['max_answer']}")
+                f"{r['execute_ms_median']:.3f} ms (first pass "
+                f"{r['execute_ms_first']:.3f} ms, captures included) batch "
+                f"{r['batch_qps']:.1f} q/s  largest answer {r['max_answer']}")
         say(f"[{what}] all answers equal the scipy.sparse reference; "
             f"{n_queries} query evaluations; telemetry {engine.telemetry}")
         return results, n_queries
 
-    cpqx_results, _ = run_templates(engine, "queries")
+    held = {"on": False, "dispatches": 0, "lanes": 0}
+    hold_to_eager(engine, held)
+    t0 = time.perf_counter()
+    cpqx_results, _ = run_templates(engine, "queries", held)
+    t_queries = time.perf_counter() - t0
+    held["on"] = True  # the traps below are held too
+    say(f"[graphs] phase 5: {held['dispatches']} dispatches ({held['lanes']} "
+        f"lanes) replayed from captured graphs, each equal to the eager walker "
+        f"(run_plan_ops called directly on the same inputs) bit for bit, "
+        f"flags and rows; {t_queries:.1f} s")
+    say(cache_line("phase 5 engine", engine))
+
+    # the static-buffer trap: one key replayed with other lookup ranges
+    from repro_torch.core.query import plan_shape
+    cache = engine.backend.executables
+    trap = None
+    for name in TEMPLATES:
+        by_key = {}
+        for q, exp in per_template[name]:
+            plan = engine.plan(q)
+            ranges = engine.lookup_ranges(plan)
+            key = (plan_shape(plan), engine.estimate_caps(
+                ranges, plan_shape(plan), plan))
+            by_key.setdefault(key, []).append((q, exp, ranges.tobytes()))
+        for key, members in by_key.items():
+            if len({r for _, _, r in members}) >= 2:
+                trap = (name, key, members)
+                break
+        if trap:
+            break
+    if trap is None:
+        fail("graphs: no key of phase 5 has two draws with other ranges")
+    name, key, members = trap
+    captures = cache.captures
+    for q, exp, _ in members:
+        if not np.array_equal(engine.execute(q), exp):
+            fail(f"graphs: {q!r} replayed with its own ranges differs")
+    if cache.captures != captures:
+        fail("graphs: a replay of a cached key captured again")
+    say(f"[graphs] static inputs: template {name} key caps {key[1]} replayed "
+        f"for {len(members)} draws with {len({r for _, _, r in members})} "
+        f"different lookup ranges, no new capture, each answer equal to the "
+        f"eager walker and the reference")
+
+    # two batches of one key dispatched before either is harvested
+    pair = None
+    for name in TEMPLATES:
+        by_shape = {}
+        for q, exp in per_template[name]:
+            by_shape.setdefault(plan_shape(engine.plan(q)), []).append((q, exp))
+        best = max(by_shape.values(), key=len)
+        if len(best) >= 4:
+            pair = (name, best)
+            break
+    if pair is None:
+        fail("graphs: no template has four draws of one plan shape")
+    name, same = pair
+    half = len(same) // 2
+    caps_t = None
+    for q, _ in same[: 2 * half]:
+        plan = engine.plan(q)
+        c = engine.estimate_caps(engine.lookup_ranges(plan), plan_shape(plan),
+                                 plan)
+        caps_t = c if caps_t is None else type(c)(
+            max(c.class_cap, caps_t.class_cap), max(c.pair_cap, caps_t.pair_cap),
+            max(c.join_cap, caps_t.join_cap))
+    captures, replays = cache.captures, cache.replays
+    h1 = engine.dispatch_batch([q for q, _ in same[:half]], caps=caps_t)
+    h2 = engine.dispatch_batch([q for q, _ in same[half: 2 * half]],
+                               caps=caps_t)
+    got2, got1 = engine.harvest_batch(h2), engine.harvest_batch(h1)
+    for part, got in ((same[:half], got1), (same[half: 2 * half], got2)):
+        for (q, exp), rows in zip(part, got):
+            if not np.array_equal(rows, exp):
+                fail(f"graphs: two batches in flight: {q!r} differs")
+    if cache.captures - captures > 1 or cache.replays - replays < 2:
+        fail("graphs: the two batches in flight did not share one key")
+    say(f"[graphs] two batches of {half} {name} queries of one plan shape at "
+        f"caps {caps_t} (one key) dispatched before either was harvested: "
+        f"{cache.captures - captures} capture(s), {cache.replays - replays} "
+        f"replays; each batch's answers equal the reference and the eager "
+        f"walker")
+
+    # the same draws eagerly on the card: the same-run yardstick
+    eager = eager_engine(index)
+    eager_ms = {}
+    for name in TEMPLATES:
+        lat = []
+        for q, exp in per_template[name]:
+            eager_launches(lambda: eager.execute(q))  # warm
+            t0 = time.perf_counter()
+            got = eager_launches(lambda: eager.execute(q))
+            lat.append(time.perf_counter() - t0)
+            if not np.array_equal(got, exp):
+                fail(f"eager engine {name} {q!r}: answer differs")
+        eager_ms[name] = 1e3 * float(np.median(lat))
+    say("[queries] execute median, replayed graphs vs the eager walker in "
+        "this run: " + ", ".join(
+            f"{n} {cpqx_results[n]['execute_ms_median']:.3f} / "
+            f"{eager_ms[n]:.3f} ms" for n in TEMPLATES))
+    held["on"] = False
     path_counts["cpqx"] = read_counts("main path (CPQx build + queries)",
                                       INDEX_KERNELS)
 
@@ -1040,6 +1291,7 @@ def main() -> int:
         f"caps {flushed.caps}")
     urng = np.random.default_rng(7)
     rebuild_fp = 0
+    stale_checked = 0
     for r in range(MAINT_ROUNDS):
         batch = update_batch(mi.g, urng, MAINT_OPS)
         t0 = time.perf_counter()
@@ -1049,10 +1301,14 @@ def main() -> int:
         flushed = mi.flush()
         torch.cuda.synchronize()
         t_flush = time.perf_counter() - t0
+        old_backend = m_engine.backend
         t0 = time.perf_counter()
         m_engine.rebind(flushed)
         t_rebind = time.perf_counter() - t0
+        if len(old_backend.executables) or old_backend.executables.bytes:
+            fail("maintenance: the old backend kept its graphs after rebind")
         check_answers(m_engine, mi.g, probes, f"maintenance round {r}")
+        stale_checked += 1
         # the paper's alternative: a full rebuild of the updated graph
         before = fingerprint.launches
         t0 = time.perf_counter()
@@ -1096,6 +1352,9 @@ def main() -> int:
         f"build {t_ia_mirror:.2f} s; delete_interest{ints_m[0]} {t_del:.3f} s, "
         f"insert_interest{ints_m[0]} {t_ins:.3f} s, flush {t_flush:.3f} s; "
         f"n_splits={mia.n_splits}; n_classes {flushed.n_classes}")
+    say(f"[graphs] maintenance: after each of {stale_checked} flush + "
+        f"rebind rounds the old backend's graphs were dropped and the new "
+        f"backend's answers equal the reference")
     m_counts = read_counts("maintenance (flush + rebind + queries, and the "
                            "rebuilds)", maint_kernels)
     say(f"[maintenance] of which the rebuilds' fingerprint_rows launches: "
@@ -1112,6 +1371,7 @@ def main() -> int:
     from repro_torch.models.gnn import edge_softmax
 
     zero_counts()
+    held.update(on=True, dispatches=0, lanes=0)
     draws = [per_template[name] for name in TEMPLATES]
     stream = [d[i] for i in range(max(len(d) for d in draws))
               for d in draws if i < len(d)]  # every round mixes shapes
@@ -1145,12 +1405,39 @@ def main() -> int:
         fail("serving: bursts past max_queue shed nothing")
     if union_lanes == 0:
         fail("serving: no lane went through the union executable")
+    held["on"] = False
+    say(f"[graphs] serving read path: {held['dispatches']} dispatches "
+        f"({held['lanes']} lanes, union and shaped) replayed, each equal to "
+        f"the eager walker; the latencies above include those eager runs "
+        f"and the captures")
+    # the same stream again on warm graphs, nothing held: serving latency
+    svc2 = QueryService(engine, union=True, max_batch=64, max_queue=32,
+                        auto_flush=False)
+    accepted2 = []
+    t0 = time.perf_counter()
+    for off in range(0, len(stream), SERVE_BURST):
+        for i, (q, exp) in enumerate(stream[off: off + SERVE_BURST], off):
+            req = svc2.submit(q, tenant=who[i % len(who)])
+            if not req.shed:
+                accepted2.append((req, exp))
+        svc2.flush()
+    wall2 = time.perf_counter() - t0
+    for req, exp in accepted2:
+        if not req.done or not np.array_equal(req.result, exp):
+            fail(f"serving (warm): {req.query!r} answer differs")
+    say(f"[serving] read path again on warm graphs, nothing held: "
+        f"{len(accepted2)} accepted, {svc2.stats.shed} shed, all answers "
+        f"equal the reference; {wall2:.2f} s")
+    tenant_report("serving", svc2.stats, [r for r, _ in accepted2], wall2)
+    say(cache_line("read-path service engine", engine))
     path_counts["serving"] = read_counts(
         "serving read path (QueryService over CPQx)",
         ("sorted_member_mask", "expand_join_gather"))
 
     # ---- 8. serving: write path + adaptation over phase 7's mirror ---- #
     zero_counts()
+    held.update(on=True, dispatches=0, lanes=0)
+    hold_to_eager(ia_engine, held)
     adapter = AdaptationController(K, config=AdaptationConfig(
         budget=2, min_count=3.0, dwell=1, swap_margin=2.0, decay=0.5))
     wsvc = QueryService(ia_engine, maintainer=mia, adapter=adapter,
@@ -1211,6 +1498,12 @@ def main() -> int:
         fail("write path: no adaptation op was applied")
     if not probes:
         fail("write path: no probe was checked")
+    if held["dispatches"] == 0:
+        fail("write path: no replay was held to the eager walker")
+    held["on"] = False
+    say(f"[graphs] serving write path: {held['dispatches']} dispatches "
+        f"({held['lanes']} lanes) replayed across {st.update_batches} "
+        f"flush + rebind drains, each equal to the eager walker")
     path_counts["serving_write"] = read_counts(
         "serving write path (updates + adaptation over the iaCPQx mirror)",
         ("expand_join_gather",))
@@ -1407,7 +1700,9 @@ def main() -> int:
         f"bit-equal to the first's")
     costmodel.activate(cost_table)
     cal_engine = Engine(index, cost_table=cost_table)
-    run_templates(cal_engine, "calibrate")
+    held.update(dispatches=0, lanes=0)
+    hold_to_eager(cal_engine, held)
+    run_templates(cal_engine, "calibrate", held)
     scale = costmodel.refine_with_engine(cost_table, cal_engine, cal_probes)
     say(f"[calibrate] refine_with_engine over {len(cal_probes)} probes: "
         f"scale {scale:.4f}, dispatch floor "
@@ -1416,6 +1711,7 @@ def main() -> int:
     budget = SLO_DISPATCHES * float(np.median(preds))
     ssvc = QueryService(cal_engine, union=True, max_batch=64, slo_ns=budget,
                         auto_flush=False)
+    held["on"] = True
     s_accepted = []
     for off in range(0, len(stream), SERVE_BURST):
         for i, (q, exp) in enumerate(stream[off: off + SERVE_BURST], off):
@@ -1440,6 +1736,12 @@ def main() -> int:
         f"the SLO")
     if slo_shed == 0:
         fail("SLO service: nothing was shed by the SLO gate")
+    held["on"] = False
+    say(f"[graphs] calibrate: {held['dispatches']} dispatches "
+        f"({held['lanes']} lanes) of the calibrated engine and the SLO "
+        f"service replayed at the tuned block sizes, each equal to the eager "
+        f"walker")
+    say(cache_line("calibrated engine", cal_engine))
     ckpt_root.mkdir(parents=True, exist_ok=True)
     table_path = str(ckpt_root / "costtable.json")
     cost_table.save(table_path)
@@ -1543,10 +1845,125 @@ def main() -> int:
         "lifecycle (restored index + promoted replica + update batch)",
         ("sorted_member_mask", "expand_join_gather"))
     costmodel.activate(None)
-    shutil.rmtree(ckpt_root)
     del replica, wsvc, mia, ia_engine, ssvc, cal_engine  # mirrors: gigabytes
 
-    # ---- 13. edge_softmax at the GNN shapes (counts to 0 just before) -- #
+    # ---- 13. sharded: the phase-4 index on in-process shards ---------- #
+    from repro_torch.core.backend import QueryCaps
+    from repro_torch.core.distributed import ShardedBackend, make_mesh
+    from repro_torch.core.sharded_index import gather_index, shard_index
+
+    zero_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sh_resident = torch.cuda.memory_allocated()
+    t_sharded = time.perf_counter()
+    for n in (1, SHARDS):
+        t0 = time.perf_counter()
+        sh = shard_index(index, n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        back = gather_index(sh, pair_cap=int(index.arrays.c2p_v.shape[0]))
+        for f in back._fields:
+            if not torch.equal(getattr(back, f), getattr(index.arrays, f)):
+                fail(f"sharded: gather_index of {n} shards: field {f} differs "
+                     "from the index")
+        say(f"[sharded] shard_index at {n} shard(s): {dt:.2f} s; pair shard "
+            f"cap {sh.pair_v.shape[1]}, c2p shard cap {sh.c2p_v.shape[1]}; "
+            f"pair rows a shard {sh.pair_counts.tolist()}, I_c2p rows a shard "
+            f"{sh.c2p_counts.tolist()}; gather_index gives back all 17 fields "
+            f"torch.equal")
+    del sh, back
+    mesh = make_mesh(SHARDS)
+    sh_engine = Engine(index, mesh=mesh)
+    sh_ms = {}
+    for name in TEMPLATES:
+        for q, exp in per_template[name]:  # first pass: captures
+            got = sh_engine.execute(q)
+            if not np.array_equal(got, exp) \
+                    or not np.array_equal(got, engine.execute(q)):
+                fail(f"sharded {name} {q!r}: answer differs from the local "
+                     "engine's or the reference")
+        lat = []
+        for q, exp in per_template[name]:
+            t0 = time.perf_counter()
+            got = sh_engine.execute(q)
+            lat.append(time.perf_counter() - t0)
+            if not np.array_equal(got, exp):
+                fail(f"sharded {name} {q!r}: a second execute differs")
+        sh_ms[name] = 1e3 * float(np.median(lat))
+    say(f"[sharded] {sum(len(v) for v in per_template.values())} draws of "
+        f"phase 5 through Engine(index, mesh=make_mesh({SHARDS})), twice: "
+        f"every answer np.array_equal to the local engine's and the "
+        f"scipy.sparse reference; execute median " + ", ".join(
+            f"{n} {sh_ms[n]:.3f} ms (local "
+            f"{cpqx_results[n]['execute_ms_median']:.3f})" for n in TEMPLATES))
+    accepted = per_template["T"]
+    t0 = time.perf_counter()
+    batch = sh_engine.execute_batch([q for q, _ in accepted])
+    t_batch = time.perf_counter() - t0
+    for (q, exp), got in zip(accepted, batch):
+        if not np.array_equal(got, exp):
+            fail(f"sharded batch: {q!r} differs from the reference")
+    retry_q, retry_exp = max(  # the largest answer, then the most classes
+        (d for name in TEMPLATES for d in per_template[name]),
+        key=lambda d: (len(d[1]), int(sh_engine.lookup_ranges(
+            sh_engine.plan(d[0]))[:, 1].max(initial=0))))
+    rungs_before = sh_engine.telemetry.retry_rungs
+    got = sh_engine.execute(retry_q, caps=QueryCaps(2, 2, 4))
+    climbed = sh_engine.telemetry.retry_rungs - rungs_before
+    if not np.array_equal(got, retry_exp) or climbed == 0:
+        fail(f"sharded overflow retry: {retry_q!r} climbed {climbed} rungs "
+             "or answered wrongly")
+    say(f"[sharded] one batch of {len(accepted)} T queries {t_batch:.3f} s, "
+        f"equal to the reference; from caps (2, 2, 4) the largest answer "
+        f"({len(retry_exp)} pairs) climbed {climbed} rungs to the exact "
+        f"answer; telemetry {sh_engine.telemetry}")
+    say(cache_line(f"sharded engine ({SHARDS} shards)", sh_engine))
+    sh_dir = str(ckpt_root / "sharded")
+    ckpt_root.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    sh_engine.backend.save(sh_dir)
+    t_shsave = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = ShardedBackend.restore(sh_dir, make_mesh(2))
+    torch.cuda.synchronize()
+    t_shload = time.perf_counter() - t0
+    gathered = gather_index(sh_engine.backend.sharded)
+    live = shard_index(CPQxIndex(
+        k=index.k, n_vertices=index.n_vertices, arrays=gathered,
+        seq_ranges=index.seq_ranges, caps=index.caps), 2)
+    for f in live._fields:
+        if not torch.equal(getattr(two.sharded, f), getattr(live, f)):
+            fail(f"sharded restore at 2 shards: leaf {f} differs from a live "
+                 "reshard")
+    same_as_index = all(torch.equal(a, b) for a, b in
+                        zip(two.sharded, shard_index(index, 2)))
+    two_engine = Engine(index, mesh=two.mesh)
+    two_engine.backend = two
+    for name in TEMPLATES:
+        q, exp = per_template[name][0]
+        if not np.array_equal(two_engine.execute(q), exp):
+            fail(f"sharded restore at 2 shards: {q!r} answer differs")
+    say(f"[sharded] save of the {SHARDS}-shard backend {t_shsave:.3f} s "
+        f"({dir_bytes(sh_dir)} bytes on disk); restore at 2 shards "
+        f"{t_shload:.3f} s: every leaf torch.equal to a live reshard "
+        f"(gather_index -> shard_index at 2)"
+        f"{' and to shard_index(index, 2)' if same_as_index else ''}; "
+        f"one draw a template through it equal to the reference")
+    torch.cuda.synchronize()
+    say(f"[sharded] peak device memory of the phase "
+        f"{(torch.cuda.max_memory_allocated() - sh_resident) / 2**30:.3f} GiB "
+        f"above {sh_resident / 2**30:.3f} GiB resident; "
+        f"{time.perf_counter() - t_sharded:.1f} s")
+    path_counts["sharded"] = read_counts(
+        f"sharded (shard_index, {SHARDS}-shard engine, batch, retry, restore)",
+        ("sorted_member_mask", "expand_join_gather"))
+    del sh_engine, two_engine, two, live, gathered
+    shutil.rmtree(ckpt_root)
+    torch.cuda.empty_cache()
+
+    # ---- 14. edge_softmax at the GNN shapes (counts to 0 just before) -- #
     zero_counts()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1726,13 +2143,19 @@ def main() -> int:
     timed("expand_join_gather", index_join_cases(index, dev)[0],
           "the index's 16 largest class lists")
 
-    # where a query's time goes: device busy share of execute
+    # where a query's time goes: device busy share of execute, replayed
+    # graphs and the eager walker in turns
     for name in ("T", "C4"):
         qs = [q for q, _ in per_template[name]]
-        wall, busy, top, _ = busy_share(lambda: [engine.execute(q) for q in qs])
-        say(f"[profile] execute x{len(qs)} {name}: wall {wall / len(qs):.3f} ms "
-            f"a query, device busy {busy / len(qs):.3f} ms a query "
-            f"({100 * busy / wall:.1f}%); top kernels {top}")
+        for what, eng in (("replayed", engine), ("eager", eager),
+                          ("replayed", engine)):
+            wall, busy, top, _ = busy_share(
+                lambda: eager_launches(lambda: [eng.execute(q) for q in qs])
+                if eng is eager else [eng.execute(q) for q in qs])
+            say(f"[profile] execute x{len(qs)} {name} ({what}): wall "
+                f"{wall / len(qs):.3f} ms a query, device busy "
+                f"{busy / len(qs):.3f} ms a query ({100 * busy / wall:.1f}%); "
+                f"top kernels {top}")
 
     # where a build's device time goes (capacities given: no host estimate)
     for what, fn in (

@@ -3,6 +3,7 @@ from .checkpoint import (  # noqa: F401
     latest_step,
     load_checkpoint,
     load_checkpoint_items,
+    restore_sharded,
     save_checkpoint,
     wait_for_writes,
 )

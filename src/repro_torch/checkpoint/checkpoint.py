@@ -315,3 +315,26 @@ def load_checkpoint_items(
         arr = _from_native(np.load(os.path.join(d, e["file"])), e["dtype"])
         items[_norm_key(e["path"])] = arr
     return items, manifest.get("extra"), step
+
+
+def restore_sharded(ckpt_dir: str, step: int, like: Any,
+                    shardings: Any = None, device=None) -> Any:
+    """Elastic restore: the leaves of ``like``'s structure as tensors on
+    devices — ``shardings`` (a tree like ``like`` whose leaves are
+    devices) names each leaf's device; without it every leaf goes to the
+    CUDA card unless ``device`` names another.  The leaves are read at
+    their checkpointed shapes, so a restart may place them anew."""
+    from ..core.index import resolve_device
+
+    host = load_checkpoint(ckpt_dir, step, like)
+    _, leaves = _flatten_with_paths(host)
+    if shardings is None:
+        dev = resolve_device(device)
+        targets = [dev] * len(leaves)
+    else:
+        targets = [torch.device(d) for d in _flatten_with_paths(shardings)[1]]
+        if len(targets) != len(leaves):
+            raise ValueError(f"{len(targets)} shardings for {len(leaves)} "
+                             "leaves")
+    return _unflatten(like, [torch.as_tensor(x).to(d)
+                             for x, d in zip(leaves, targets)])

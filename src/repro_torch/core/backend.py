@@ -12,8 +12,19 @@ physical plan; this module executes it on the device:
   * :func:`run_union_batch` — the union executable: a mixed-shape batch
     in one dispatch, each lane interpreting its own postorder program
     (:func:`plan_program`) over a value stack;
-  * :class:`LocalBackend` — the host-facing contract the engine drives
-    (numpy in, numpy-or-overflow out).
+  * :func:`run_plan` / :func:`run_plan_batch` — the walker over one
+    index's arrays, under the reference's names and result contract;
+  * :class:`ExecutionBackend` — the host-facing contract the engine drives
+    (numpy in, numpy-or-overflow out); :class:`CapturedBackend`, what a
+    backend that replays captured executables shares; and
+    :class:`LocalBackend`, the single-device backend.
+    ``core.distributed.ShardedBackend`` runs the same walker over a
+    sharded index.
+
+On the card a backend replays each plan through a CUDA graph captured once
+per (plan shape, caps, lanes), and each union program once per (caps,
+stack size, steps, lanes) — the counterpart of the reference's one jit per
+key (``core.executables``).  On the CPU it runs the walker eagerly.
 
 Every relation in the walker carries a leading *lane* dimension, one
 lane per query of a same-shape batch (a single query is one lane):
@@ -40,12 +51,14 @@ a batch retries only the lanes that tripped.
 
 from __future__ import annotations
 
+import abc
 import dataclasses
 
 import numpy as np
 import torch
 
 from . import relational as R
+from .executables import ExecutableCache
 from .index import DeviceIndexArrays
 from .paths import _recap
 from ..kernels import ops as kops
@@ -130,13 +143,17 @@ class PlanOps:
 
     # ---- pair space ---- #
 
+    def class_extents(self, cids: torch.Tensor):
+        """(first I_c2p row, row count) of each class id of (B, n) ``cids``."""
+        cid = cids.clamp(0, self.class_starts.shape[0] - 2).long()
+        lo = self.class_starts[cid]
+        return lo, self.class_starts[cid + 1] - lo
+
     def materialize(self, classes: R.Relation, pair_cap: int) -> R.Relation:
         """classes -> sorted distinct (v, u).  Classes are disjoint, so the
         expansion introduces no duplicate pairs.  The gather pass is the
         ``expand_join`` kernel."""
-        cid = classes.cols[0].clamp(0, self.class_starts.shape[0] - 2).long()
-        lo = self.class_starts[cid]
-        cnt = self.class_starts[cid + 1] - lo
+        lo, cnt = self.class_extents(classes.cols[0])
         cnt = torch.where(R.valid_mask(classes), cnt, 0)
         ends = torch.cumsum(cnt, -1, dtype=R.I32)
         total = ends[..., -1]
@@ -250,6 +267,31 @@ def run_plan_ops(ops: PlanOps, plan, caps: QueryCaps,
     return ops.finish(as_pairs(ev(plan)))
 
 
+def run_plan_batch(a: DeviceIndexArrays, plan, caps: QueryCaps,
+                   n_vertices: int, lookup_ranges):
+    """The walker over one index's arrays for a same-shape batch:
+    ``lookup_ranges`` (batch, n_lookups, 2).  Returns a batched Relation
+    (cols (batch, pair_cap)) and the per-query (batch,) overflow flags —
+    each lane's flag is its own, so the host retries only the lanes that
+    tripped.  It runs where the arrays lie, eagerly; the backends keep
+    the captured executables."""
+    ranges = torch.as_tensor(np.asarray(lookup_ranges, np.int32)
+                             if not torch.is_tensor(lookup_ranges)
+                             else lookup_ranges, dtype=R.I32,
+                             device=a.pair_v.device)
+    return run_plan_ops(LocalOps(a, n_vertices), plan, caps, ranges)
+
+
+def run_plan(a: DeviceIndexArrays, plan, caps: QueryCaps, n_vertices: int,
+             lookup_ranges):
+    """One query: ``lookup_ranges`` (n_lookups, 2).  Returns the pair
+    Relation (1-D columns, 0-d count) and the 0-d overflow flag."""
+    rel, overflow = run_plan_batch(a, plan, caps, n_vertices,
+                                   lookup_ranges[None])
+    return (R.Relation(tuple(c[0] for c in rel.cols), rel.count[0],
+                       rel.overflow[0]), overflow[0])
+
+
 # ---------------------------------------------------------------------- #
 # the union executable — one dispatch for a mixed-shape batch
 # ---------------------------------------------------------------------- #
@@ -323,8 +365,17 @@ def program_ranges(prog, ranges: np.ndarray, n_steps: int) -> np.ndarray:
     return out
 
 
+def union_tables(device) -> tuple:
+    """The per-opcode stack-pointer delta and write-offset tables on
+    ``device``.  A backend builds them once: a host-to-device copy cannot
+    sit inside a captured graph."""
+    return (torch.tensor(_OP_DELTA, dtype=R.I32, device=device),
+            torch.tensor(_OP_WRITE, dtype=R.I32, device=device))
+
+
 def run_union_batch(ops: PlanOps, caps: QueryCaps, stack_size: int,
-                    opcodes: torch.Tensor, step_ranges: torch.Tensor):
+                    opcodes: torch.Tensor, step_ranges: torch.Tensor,
+                    tables: tuple | None = None):
     """Interpret a mixed-shape batch in one pass over the program steps:
     ``opcodes`` (B, T) int32 and ``step_ranges`` (B, T, 2) int32 device
     tensors carry each lane's program as data.  Returns ``ops.finish`` of
@@ -341,14 +392,14 @@ def run_union_batch(ops: PlanOps, caps: QueryCaps, stack_size: int,
 
     The value stack is two (B, stack_size, pair_cap) int32 tensors:
     ``2 * B * stack_size * pair_cap * 4`` bytes, 16 MiB per lane and slot
-    at pair_cap 2^21."""
+    at pair_cap 2^21.  ``tables`` are :func:`union_tables` of the device,
+    built here when the caller has none."""
     lanes, n_steps = opcodes.shape
     cap = caps.pair_cap
     dev = opcodes.device
     lane_ix = torch.arange(lanes, device=dev)
     slots = torch.arange(stack_size, dtype=R.I32, device=dev)
-    delta = torch.tensor(_OP_DELTA, dtype=R.I32, device=dev)
-    write = torch.tensor(_OP_WRITE, dtype=R.I32, device=dev)
+    delta, write = tables if tables is not None else union_tables(dev)
     no_ovf = torch.zeros(lanes, dtype=torch.bool, device=dev)
     empty_col = torch.full((lanes, cap), R.SENTINEL, dtype=R.I32, device=dev)
     v = torch.full((lanes, stack_size, cap), R.SENTINEL, dtype=R.I32, device=dev)
@@ -393,71 +444,106 @@ def run_union_batch(ops: PlanOps, caps: QueryCaps, stack_size: int,
 
 
 # ---------------------------------------------------------------------- #
-# host-facing backend
+# host-facing backend contract
 # ---------------------------------------------------------------------- #
 
 
-class LocalBackend:
-    """Single-device execution over :class:`DeviceIndexArrays`.
+class ExecutionBackend(abc.ABC):
+    """What the :class:`~repro_torch.core.engine.Engine` drives.
 
-    ``run``/``run_batch`` report overflow instead of raising: the engine
-    owns the double-and-retry capacity ladder."""
+    A backend owns the physical index arrays (however they are laid out)
+    and turns (plan shape, caps, lookup ranges) into numpy answers.  Both
+    entry points report overflow instead of raising: the engine owns the
+    double-and-retry capacity ladder, identically for every backend."""
 
-    supports_union = True
+    n_vertices: int
 
-    def __init__(self, arrays: DeviceIndexArrays, n_vertices: int):
-        self.ops = LocalOps(arrays, n_vertices)
-        self.device = arrays.pair_v.device
+    #: whether :meth:`run_union_batch` is implemented (the engine keeps
+    #: one dispatch per shape when it is not).
+    supports_union = False
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
-        """A small int32 host array (lookup ranges, opcodes) on the device."""
-        host = torch.from_numpy(np.ascontiguousarray(host, np.int32))
-        if self.device.type == "cuda":
-            # a pageable copy would wait for the stream's earlier batches;
-            # a pinned one is enqueued behind them and returns at once
-            host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
-
+    @abc.abstractmethod
     def run(self, shape, caps: QueryCaps, ranges: np.ndarray):
         """One query.  ``ranges`` (n_lookups, 2) -> (rows | None, overflow):
         sorted distinct (n, 2) int32 s-t pairs, or None when the sticky
         overflow flag tripped (the caller retries with doubled caps)."""
-        rel, overflow = run_plan_ops(self.ops, shape, caps,
-                                     self._upload(ranges)[None])
-        if bool(overflow[0]):
-            return None, True
-        return R.batch_to_numpy(rel)[0], False
 
+    @abc.abstractmethod
     def run_batch(self, shape, caps: QueryCaps, ranges: np.ndarray):
         """Batch of same-shape queries.  ``ranges`` (batch, n_lookups, 2)
         -> (list of rows-or-None per lane, (batch,) bool overflow)."""
-        return self.harvest_batch(self.run_batch_async(shape, caps, ranges))
-
-    def run_batch_async(self, shape, caps: QueryCaps, ranges: np.ndarray):
-        """Enqueue a batch on the device and return a handle at once; the
-        CUDA stream runs it while the caller plans the next batch."""
-        rel, overflow = run_plan_ops(self.ops, shape, caps,
-                                     self._upload(ranges))
-        return ("lanes", rel, overflow)
 
     def run_union_batch(self, opcodes: np.ndarray, caps: QueryCaps,
                         stack_size: int, step_ranges: np.ndarray):
         """Mixed-shape batch via the union executable.  ``opcodes``
-        (batch, T), ``step_ranges`` (batch, T, 2); the result contract of
-        :meth:`run_batch`."""
-        return self.harvest_batch(self.run_union_batch_async(
-            opcodes, caps, stack_size, step_ranges))
+        (batch, T), ``step_ranges`` (batch, T, 2); same result contract
+        as :meth:`run_batch`.  Optional — guarded by ``supports_union``."""
+        raise NotImplementedError
+
+    # -- async dispatch (pipelined drain) -- #
+    #
+    # ``*_async`` returns an opaque handle right after the device
+    # dispatch; ``harvest_batch`` blocks on it and converts to the
+    # ``run_batch`` result contract.  The defaults run synchronously, so
+    # every backend supports the pipelined drain.
+
+    def run_batch_async(self, shape, caps: QueryCaps, ranges: np.ndarray):
+        return ("sync", self.run_batch(shape, caps, ranges))
 
     def run_union_batch_async(self, opcodes: np.ndarray, caps: QueryCaps,
                               stack_size: int, step_ranges: np.ndarray):
-        """Enqueue a union batch and return a handle at once."""
-        rel, overflow = run_union_batch(
-            self.ops, caps, stack_size, self._upload(opcodes),
-            self._upload(step_ranges))
-        return ("lanes", rel, overflow)
+        return ("sync", self.run_union_batch(opcodes, caps, stack_size,
+                                             step_ranges))
 
     def harvest_batch(self, handle):
-        """Block on a handle of :meth:`run_batch_async` and convert."""
+        tag, payload = handle[0], handle[1:]
+        if tag == "sync":
+            return payload[0]
+        raise NotImplementedError(tag)
+
+    def close(self) -> None:
+        """Drop what the backend holds besides its arrays (captured
+        executables); the engine calls it when it replaces the backend."""
+
+
+class CapturedBackend(ExecutionBackend):
+    """A backend on one device whose dispatches replay captured
+    executables on the card and run eagerly on the CPU, and whose handles
+    carry a batched (B, cap) result relation and its (B,) flags.
+
+    ``executables`` is the :class:`ExecutableCache` on the card; it is
+    None on the CPU, unless a test sets a cache to check its bookkeeping.
+    Subclasses set ``device`` and ``executables`` and implement
+    :meth:`run_batch_async`."""
+
+    device: torch.device
+    executables: ExecutableCache | None
+
+    def close(self) -> None:
+        if self.executables is not None:
+            self.executables.clear()
+
+    def _launch(self, key, fn, host_inputs) -> tuple:
+        """``fn`` on the int32 host arrays: on the card always a replay of
+        the captured executable of ``key``; on the CPU one eager call (or
+        the entry of a cache a test set)."""
+        if self.device.type == "cuda" or self.executables is not None:
+            return self.executables.run(key, fn, host_inputs)
+        return fn(*(torch.as_tensor(np.asarray(h, np.int32), device=self.device)
+                    for h in host_inputs))
+
+    def run(self, shape, caps: QueryCaps, ranges: np.ndarray):
+        """One query: a batch of one lane."""
+        rows, overflow = self.run_batch(shape, caps, np.asarray(ranges)[None])
+        return rows[0], bool(overflow[0])
+
+    def run_batch(self, shape, caps: QueryCaps, ranges: np.ndarray):
+        return self.harvest_batch(self.run_batch_async(shape, caps, ranges))
+
+    def harvest_batch(self, handle):
+        """Block on a handle of the ``*_async`` calls and convert."""
+        if handle[0] != "lanes":
+            return super().harvest_batch(handle)
         _, rel, overflow = handle
         overflow = overflow.cpu().numpy()
         results: list = [None] * overflow.shape[0]
@@ -466,3 +552,58 @@ class LocalBackend:
             for lane, rows in zip(ok, R.batch_to_numpy(rel, lanes=ok)):
                 results[lane] = rows
         return results, overflow
+
+
+class LocalBackend(CapturedBackend):
+    """Single-device execution over :class:`DeviceIndexArrays`.
+
+    On the card each (plan shape, caps, lanes) and each (caps, stack
+    size, steps, lanes) of the union executable is one captured graph in
+    :attr:`executables`.  The graphs read the arrays by address, so the
+    backend never changes its arrays: ``Engine.rebind`` builds a new
+    backend and closes this one."""
+
+    supports_union = True
+
+    def __init__(self, arrays: DeviceIndexArrays, n_vertices: int):
+        self.ops = LocalOps(arrays, n_vertices)
+        self.n_vertices = n_vertices
+        self.device = arrays.pair_v.device
+        self.executables = (ExecutableCache(self.device)
+                            if self.device.type == "cuda" else None)
+        self._tables = union_tables(self.device)
+
+    def run_batch_async(self, shape, caps: QueryCaps, ranges: np.ndarray):
+        """Enqueue a batch on the device and return a handle at once; the
+        CUDA stream runs it while the caller plans the next batch."""
+        ops = self.ops
+
+        def walk(lookup_ranges):
+            rel, overflow = run_plan_ops(ops, shape, caps, lookup_ranges)
+            return rel.cols + (rel.count, overflow)
+
+        ranges = np.asarray(ranges, np.int32)
+        v, u, count, overflow = self._launch(
+            ("plan", shape, caps, ranges.shape[0]), walk, (ranges,))
+        return ("lanes", R.Relation((v, u), count, overflow), overflow)
+
+    def run_union_batch(self, opcodes: np.ndarray, caps: QueryCaps,
+                        stack_size: int, step_ranges: np.ndarray):
+        return self.harvest_batch(self.run_union_batch_async(
+            opcodes, caps, stack_size, step_ranges))
+
+    def run_union_batch_async(self, opcodes: np.ndarray, caps: QueryCaps,
+                              stack_size: int, step_ranges: np.ndarray):
+        """Enqueue a union batch and return a handle at once."""
+        ops, tables = self.ops, self._tables
+
+        def interpret(oc, rg):
+            rel, overflow = run_union_batch(ops, caps, stack_size, oc, rg,
+                                            tables)
+            return rel.cols + (rel.count, overflow)
+
+        opcodes = np.asarray(opcodes, np.int32)
+        key = ("union", caps, stack_size, opcodes.shape[1], opcodes.shape[0])
+        v, u, count, overflow = self._launch(
+            key, interpret, (opcodes, np.asarray(step_ranges, np.int32)))
+        return ("lanes", R.Relation((v, u), count, overflow), overflow)

@@ -397,16 +397,21 @@ def calibrate(rungs=None, repeats: int = 3, n_vertices: int = 1 << 16,
     (capacity -> wall-clock) signal; what the constants *mean* on real
     plans is corrected afterwards by the refinement passes
     (:func:`refine_with_engine` / :meth:`DeviceCostTable.
-    refine_from_trajectory`).  Each timing is the host wall clock around
-    one operator call ended by ``torch.cuda.synchronize()``: the launch
-    is included on purpose, since launch overhead is exactly what the
-    row-count model cannot see.  ``device_kind`` defaults to
+    refine_from_trajectory`).  On the card each operator is captured in
+    a CUDA graph, as the engine's executables are, and a timing is the
+    host wall clock around one replay ended by ``torch.cuda.synchronize()``
+    — the counterpart of the reference's timing of one ``jax.jit`` call,
+    dispatch included on purpose, since the dispatch is exactly what the
+    row-count model cannot see.  On the CPU the operator runs eagerly.
+    The union step is priced by differencing a 6-step and a 2-step
+    program, each one executable.  ``device_kind`` defaults to
     ``torch.cuda.get_device_name`` (``"cpu"`` on the CPU)."""
     import torch
 
     from . import relational as R
     from .backend import (OP_CONJ_ID, OP_LOOKUP, LocalOps, QueryCaps,
-                          run_union_batch)
+                          run_union_batch, union_tables)
+    from .executables import CapturedGraph
     from .index import DeviceIndexArrays, resolve_device
 
     dev = resolve_device(device)
@@ -416,10 +421,15 @@ def calibrate(rungs=None, repeats: int = 3, n_vertices: int = 1 << 16,
     table = DeviceCostTable(device_kind=device_kind, vmem_words=None)
     rungs = sorted(int(r) for r in (rungs or DEFAULT_RUNGS))
 
-    def sync(x):
+    def time_ns(fn, inputs) -> float:
+        """Median ns of one ``fn(*inputs)``: a replay of its graph on the
+        card (in a pool of its own, freed with it), the eager call on the
+        CPU."""
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return x
+            graph = CapturedGraph(fn, inputs)
+            return _time_ns(lambda: (graph.replay(),
+                                     torch.cuda.synchronize(dev)), repeats)
+        return _time_ns(lambda: fn(*inputs), repeats)
 
     def arrays_for(r: int) -> DeviceIndexArrays:
         """Synthetic index: r classes of one pair each, sorted ids."""
@@ -439,24 +449,27 @@ def calibrate(rungs=None, repeats: int = 3, n_vertices: int = 1 << 16,
         return torch.full((1,), x, dtype=R.I32, device=dev)
 
     no = torch.zeros((1,), dtype=torch.bool, device=dev)
+    tables = union_tables(dev)
     for r in rungs:
         ops = LocalOps(arrays_for(r), min(n_vertices, r))
         ids = torch.arange(r, dtype=R.I32, device=dev)[None]
-        rel1 = R.Relation((ids,), i32(r), no)
-        pairs = R.Relation((ids, ids), i32(r), no)
-        start, length = i32(0), i32(r)
+        count, start = i32(r), i32(0)
         timed = {
-            "lookup": lambda _o=ops, _r=r, _s=start, _n=length:
-                _o.lookup_classes(_s, _n, _r).cols[0],
-            "materialize": lambda _o=ops, _r=r, _a=rel1:
-                _o.materialize(_a, _r).cols[0],
-            "conjoin": lambda _o=ops, _a=rel1: _o.conj_classes(_a, _a).cols[0],
-            "join": lambda _o=ops, _r=r, _a=pairs:
-                _o.join_pairs(_a, _a, 2 * _r, _r).cols[0],
-            "identity": lambda _o=ops, _r=r: _o.identity_pairs(_r, 1).cols[0],
+            "lookup": (lambda s, n, _o=ops, _r=r:
+                       (_o.lookup_classes(s, n, _r).cols[0],), (start, count)),
+            "materialize": (lambda a, n, _o=ops, _r=r: (_o.materialize(
+                R.Relation((a,), n, no), _r).cols[0],), (ids, count)),
+            "conjoin": (lambda a, n, _o=ops: (_o.conj_classes(
+                R.Relation((a,), n, no), R.Relation((a,), n, no)).cols[0],),
+                (ids, count)),
+            "join": (lambda a, n, _o=ops, _r=r: (_o.join_pairs(
+                R.Relation((a, a), n, no), R.Relation((a, a), n, no),
+                2 * _r, _r).cols[0],), (ids, count)),
+            "identity": (lambda n, _o=ops, _r=r:
+                         (_o.identity_pairs(_r, 1).cols[0],), (count,)),
         }
-        for op, fn in timed.items():
-            table.observe(op, r, _time_ns(lambda f=fn: sync(f()), repeats))
+        for op, (fn, inputs) in timed.items():
+            table.observe(op, r, time_ns(fn, inputs))
 
         # union-program step overhead: a T-step vs T'-step program of the
         # same shape isolates the per-step price (every step evaluates
@@ -470,11 +483,11 @@ def calibrate(rungs=None, repeats: int = 3, n_vertices: int = 1 << 16,
             opc[0, 0] = OP_LOOKUP
             rng_rows = np.zeros((1, steps, 2), np.int32)
             rng_rows[0, 0] = (0, r)
-            o = torch.as_tensor(opc, device=dev)
-            g = torch.as_tensor(rng_rows, device=dev)
-            per_lane[steps] = _time_ns(
-                lambda o=o, g=g: sync(run_union_batch(
-                    union_ops, caps, 2, o, g)[0].cols[0]), repeats)
+            per_lane[steps] = time_ns(
+                lambda o, g, _u=union_ops, _c=caps: (run_union_batch(
+                    _u, _c, 2, o, g, tables)[0].cols[0],),
+                (torch.as_tensor(opc, device=dev),
+                 torch.as_tensor(rng_rows, device=dev)))
         per_step = max(0.0, (per_lane[6] - per_lane[2]) / 4.0)
         table.observe("union_step", r, per_step)
 

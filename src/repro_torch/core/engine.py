@@ -9,8 +9,11 @@ and conjunctions using the exact cardinalities of
 len) ranges of each LOOKUP) streams to the device as one small tensor,
 so queries of one template share one plan shape and batch together.
 
-The physical algebra lives in ``core.backend``.  The :class:`Engine`
-here owns everything backend-independent: planning, the host-side
+The physical algebra lives in ``core.backend`` (the single-device
+:class:`~repro_torch.core.backend.LocalBackend`) and ``core.distributed``
+(:class:`~repro_torch.core.distributed.ShardedBackend`, the same plan
+walker over a sharded index).  The :class:`Engine` here owns everything
+backend-independent: planning, the host-side
 capacity estimator, the overflow retry schedule (the capacity ladder is
 specified in the ``core.backend`` module docstring), plan-shape
 batching, the fusion of straggler buckets into one union-executable
@@ -23,8 +26,17 @@ import dataclasses
 
 import numpy as np
 
-from .backend import (OP_NOP, LocalBackend, QueryCaps, default_caps,
-                      plan_program, program_ranges)
+from .backend import (  # noqa: F401  (QueryCaps/run_plan* are public API)
+    OP_NOP,
+    ExecutionBackend,
+    LocalBackend,
+    QueryCaps,
+    default_caps,
+    plan_program,
+    program_ranges,
+    run_plan,
+    run_plan_batch,
+)
 from .index import CPQxIndex, resolve_device
 from .optimizer import estimate_plan, optimize_query
 from .query import CPQ, plan_query, plan_lookup_seqs, plan_shape
@@ -68,6 +80,10 @@ class LadderTelemetry:
     def snapshot(self) -> "LadderTelemetry":
         return dataclasses.replace(self)
 
+    def reset(self) -> None:
+        self.queries = self.dispatches = 0
+        self.retry_rungs = self.default_jumps = self.union_lanes = 0
+
 
 @dataclasses.dataclass
 class _Group:
@@ -100,6 +116,14 @@ class Engine:
     it is None.  The engine never moves an index; it raises when the
     index lies elsewhere, so a CPU run is always asked for by name.
 
+    ``mesh``/``axis`` select the backend: None (default) binds the
+    single-device :class:`LocalBackend`; a mesh
+    (:func:`repro_torch.core.distributed.make_mesh`, on the same device)
+    binds a :class:`~repro_torch.core.distributed.ShardedBackend` that
+    shards the index over the mesh axis.  Either way the public API —
+    ``execute``, ``execute_batch``, ``rebind`` — is the same, and so are
+    the answers.
+
     ``optimize`` selects the planner: True (default) runs the cost-based
     optimizer over the index statistics; False pins the syntactic
     ``plan_query``.
@@ -114,9 +138,14 @@ class Engine:
     the telemetry, it describes the device, not the index.
     """
 
-    def __init__(self, index: CPQxIndex, optimize: bool = True, device=None,
-                 cost_table=None):
+    def __init__(self, index: CPQxIndex, mesh=None, axis: str = "engine",
+                 optimize: bool = True, device=None, cost_table=None):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh lies on {mesh.device}, the engine "
+                             f"expects {self.device}")
+        self.mesh = mesh
+        self.axis = axis
         self.optimize = optimize
         self.cost_table = cost_table
         self.telemetry = LadderTelemetry()
@@ -127,10 +156,12 @@ class Engine:
         restore) in place: re-pulls the host-side statistics view
         (optimizer + capacity estimator), the set of sequences an iaCPQx
         index holds (the planners split every other sequence) and the
-        default caps, and rebuilds the backend.  ``stats`` supplies a
-        pre-built statistics view of this exact index instead (a
-        checkpoint restore passes one whose endpoint cache is pre-warmed
-        from the donor)."""
+        default caps, and rebuilds the backend — closing the old one, whose
+        captured graphs read the old arrays — or, for a mesh engine,
+        reshards into the existing backend (its graphs survive while the
+        shard shapes hold).  ``stats`` supplies a pre-built statistics
+        view of this exact index instead (a checkpoint restore passes one
+        whose endpoint cache is pre-warmed from the donor)."""
         if index.device != self.device:
             raise ValueError(
                 f"index lies on {index.device}, engine expects {self.device}; "
@@ -141,7 +172,22 @@ class Engine:
         self._class_sizes = self.stats.class_sizes
         self._l2c_host = self.stats.l2c_cls
         self._default_caps = default_caps(index)  # one device sync, here
-        self.backend = LocalBackend(index.arrays, index.n_vertices)
+        prev = getattr(self, "backend", None)
+        if self.mesh is None:
+            self.backend: ExecutionBackend = LocalBackend(
+                index.arrays, index.n_vertices)
+        else:
+            # engine <- distributed is one-way
+            from .distributed import ShardedBackend
+
+            if isinstance(prev, ShardedBackend) and prev.mesh is self.mesh \
+                    and prev.axis == self.axis:
+                prev.reshard(index)  # keep the captured graphs
+                return
+            self.backend = ShardedBackend.from_index(
+                index, self.mesh, axis=self.axis, device=self.device)
+        if prev is not None:
+            prev.close()
 
     def plan(self, q: CPQ):
         """Compile ``q`` to a physical plan: cost-optimized against the

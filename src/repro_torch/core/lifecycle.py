@@ -1,8 +1,7 @@
 """Zero-downtime index lifecycle — checkpoint, warm restart, promotion.
 
-The port of the reference package's ``core/lifecycle.py`` (the local
-half: the sharded functions wait for the port of the sharded backend).
-The entire serving state is snapshotted as ONE flat dict of host leaves
+The port of the reference package's ``core/lifecycle.py``.  The entire
+serving state is snapshotted as ONE flat dict of host leaves
 through ``repro_torch.checkpoint`` (atomic rename commit + LATEST
 pointer + fsync durability), with the reference's leaf names, dtypes and
 shapes, so a checkpoint written by either package restores in the other:
@@ -19,6 +18,9 @@ shapes, so a checkpoint written by either package restores in the other:
                         JSON leaf) — restored engines price plans with
                         their calibrated device constants at once
     service.meta        the graph epoch
+    sharded.*           per-shard leaves of a :class:`ShardedBackend`
+                        (saved separately; restorable at a different
+                        shard count)
 
 so a restart is **load + rebind** instead of a rebuild, and a cold
 replica can be promoted mid-traffic (:func:`restore_service`).  Restore
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import latest_step, load_checkpoint_items, save_checkpoint
-from .capacity import decode_caps, encode_caps
+from .capacity import FlushCaps, decode_caps, encode_caps
 from .costmodel import DeviceCostTable
 from .engine import Engine
 from .index import CPQxIndex, DeviceIndexArrays, _pull_seq_ranges, resolve_device
@@ -209,16 +211,18 @@ def load_state(ckpt_dir: str, step: Optional[int] = None,
 
 
 def restore_service(ckpt_dir: str, step: Optional[int] = None, device=None,
-                    **service_kwargs) -> QueryService:
+                    mesh=None, **service_kwargs) -> QueryService:
     """Cold-replica promotion: a fully warm :class:`QueryService` from a
     committed checkpoint — load + bind, no graph rebuild, no mirror
     rebuild, no sketch cold start — on the CUDA card unless ``device``
-    names another.  The epoch resumes PAST the donor's, so any answer a
-    stale client cached against the donor can never be confused with
+    names another; with a ``mesh`` (on that device) the engine serves off
+    a sharded backend.  The epoch resumes PAST the donor's, so any answer
+    a stale client cached against the donor can never be confused with
     this replica's."""
     dev = resolve_device(device)
     state = load_state(ckpt_dir, step, dev)
-    engine = Engine(state.index, cost_table=state.cost_table, device=dev)
+    engine = Engine(state.index, mesh=mesh, cost_table=state.cost_table,
+                    device=dev)
     warm = state.stats.export_endpoints()
     if warm is not None:
         engine.stats.seed_endpoints(warm)
@@ -227,3 +231,65 @@ def restore_service(ckpt_dir: str, step: Optional[int] = None, device=None,
     svc.graph_epoch = state.epoch + 1
     svc._ckpt_step = state.step + 1
     return svc
+
+
+# ---------------------------------------------------------------------- #
+# sharded backend <-> leaves (elastic: restore at any shard count)
+# ---------------------------------------------------------------------- #
+
+
+def save_sharded(sharded, n_vertices: int, k: Optional[int],
+                 ckpt_dir: str, step: int = 0) -> str:
+    """``ShardedBackend.save``: per-shard leaves + layout metadata."""
+    from .sharded_index import ShardedIndexArrays
+
+    leaves = {f"sharded.{f}": getattr(sharded, f).cpu().numpy()
+              for f in ShardedIndexArrays._fields}
+    leaves["sharded.meta"] = np.array(
+        [sharded.n_shards, n_vertices, -1 if k is None else k], np.int64)
+    return save_checkpoint(ckpt_dir, step, leaves,
+                           extra={"format": FORMAT, "kind": "sharded"})
+
+
+def load_sharded_arrays(ckpt_dir: str, step: Optional[int] = None,
+                        n_shards: Optional[int] = None, device=None):
+    """Load checkpointed shard leaves, optionally RE-sharded to another
+    count, on the CUDA card unless ``device`` names another.  Returns
+    ``(ShardedIndexArrays, n_vertices, k)``.
+
+    Same count: the saved leaves are placed verbatim.  Another count: the
+    restore is ``gather_index`` followed by ``shard_index`` at the new
+    count, so the result is bit-identical to resharding the live index."""
+    from .sharded_index import ShardedIndexArrays, gather_index, shard_index
+
+    dev = resolve_device(device)
+    items, _, _ = load_checkpoint_items(ckpt_dir, _resolve_step(ckpt_dir, step))
+    meta = np.asarray(items["sharded.meta"], np.int64)
+    saved_shards, n_vertices, k = (int(x) for x in meta[:3])
+    sharded = ShardedIndexArrays(**{
+        f: torch.as_tensor(items[f"sharded.{f}"], device=dev)
+        for f in ShardedIndexArrays._fields})
+    if n_shards is None or n_shards == saved_shards:
+        return sharded, n_vertices, (None if k < 0 else k)
+    gathered = gather_index(sharded)
+    wrapper = CPQxIndex(
+        k=max(k, 1), n_vertices=n_vertices, arrays=gathered,
+        seq_ranges=_pull_seq_ranges(gathered, max(k, 1)),
+        caps=FlushCaps(pair_cap=int(gathered.c2p_v.shape[0]),
+                       l2c_cap=int(gathered.l2c_cls.shape[0]),
+                       seq_cap=int(gathered.seq_table.shape[0])))
+    return (shard_index(wrapper, n_shards), n_vertices,
+            (None if k < 0 else k))
+
+
+def restore_sharded_backend(ckpt_dir: str, mesh, step: Optional[int] = None,
+                            axis: str = "engine", device=None):
+    """``ShardedBackend.restore``: a live backend on ``mesh`` (on the CUDA
+    card unless ``device`` names another), resharding the saved leaves if
+    the mesh axis size differs from the saved count."""
+    from .distributed import ShardedBackend
+
+    n_shards = int(dict(mesh.shape)[axis])
+    sharded, n_vertices, k = load_sharded_arrays(ckpt_dir, step, n_shards,
+                                                 device)
+    return ShardedBackend(sharded, mesh, n_vertices, axis=axis, k=k)

@@ -76,6 +76,22 @@ def _recap(rel: R.Relation, cap: int) -> R.Relation:
     return R.Relation(cols, torch.clamp(rel.count, max=cap).to(R.I32), overflow)
 
 
+def pairs_of_levels(levels: tuple, cap: int,
+                    union_cap: int | None = None) -> R.Relation:
+    """Distinct s-t pairs across all levels: P^{<=k} (cols v, u).
+    ``union_cap`` must hold the pre-dedup union (defaults to the sum of
+    the level capacities)."""
+    if union_cap is None:
+        union_cap = sum(lvl.capacity for lvl in levels)
+    acc = None
+    for lvl in levels:
+        pairs = R.Relation(lvl.cols[:2], lvl.count, lvl.overflow)
+        pairs = R.rel_unique(R.rel_sort(pairs), 2)
+        acc = pairs if acc is None else R.rel_concat(acc, pairs, union_cap)
+    acc = R.rel_unique(R.rel_sort(acc), 2)
+    return _recap(acc, cap)
+
+
 def seq_rows_of_levels(levels: tuple, k: int, cap: int) -> R.Relation:
     """All (s_1..s_k [padded -1], v, u) incidence rows across levels.
 

@@ -62,6 +62,24 @@ class Relation(NamedTuple):
         return len(self.cols)
 
 
+def make_relation(cols: Sequence, count=None, overflow=None,
+                  device=None) -> Relation:
+    """A relation of int32 columns (tensors or host arrays); ``count``
+    defaults to the capacity, ``overflow`` to False.  Host arrays go to
+    ``device`` (the CPU when it is None); tensors stay where they lie
+    unless ``device`` names another."""
+    cols = tuple(torch.as_tensor(np.asarray(c) if not torch.is_tensor(c)
+                                 else c, dtype=I32, device=device)
+                 for c in cols)
+    dev = cols[0].device
+    if count is None:
+        count = cols[0].shape[-1]
+    if overflow is None:
+        overflow = False
+    return Relation(cols, torch.as_tensor(count, dtype=I32, device=dev),
+                    torch.as_tensor(overflow, dtype=torch.bool, device=dev))
+
+
 def from_numpy(rows: np.ndarray, capacity: int, device) -> Relation:
     """Host rows (n, arity) -> padded 1-D device relation."""
     rows = np.asarray(rows, np.int32).reshape(rows.shape[0], -1)
@@ -74,6 +92,12 @@ def from_numpy(rows: np.ndarray, capacity: int, device) -> Relation:
     return Relation(tuple(cols.unbind(0)),
                     torch.tensor(n, dtype=I32, device=device),
                     torch.tensor(False, device=device))
+
+
+def to_numpy(rel: Relation) -> np.ndarray:
+    """Valid rows of a 1-D relation as a host (count, arity) array."""
+    n = int(rel.count)
+    return np.stack([c[:n].cpu().numpy() for c in rel.cols], axis=1)
 
 
 def batch_to_numpy(rel: Relation, lanes=None) -> list[np.ndarray]:
@@ -253,6 +277,16 @@ def rel_intersect(a: Relation, b: Relation, num_keys: int | None = None) -> Rela
     return Relation(out.cols, out.count, out.overflow | b.overflow)
 
 
+def rel_difference(a: Relation, b: Relation, num_keys: int | None = None) -> Relation:
+    """a \\ b on the first num_keys columns (both sorted+unique there);
+    keeps a's rows.  b's overflow is sticky on the result, as in
+    :func:`rel_intersect`."""
+    nk = num_keys if num_keys is not None else min(a.arity, b.arity)
+    cnt = lex_count_matches(b.cols[:nk], a.cols[:nk], b.count)
+    out = rel_compact(a, cnt == 0)
+    return Relation(out.cols, out.count, out.overflow | b.overflow)
+
+
 def rel_concat(a: Relation, b: Relation, capacity: int) -> Relation:
     """Union-all into a fresh capacity (rows beyond capacity overflow)."""
     assert a.arity == b.arity
@@ -330,6 +364,10 @@ def expansion_join(
 _M32 = 0xFFFFFFFF
 _MIX_A = 0x7FEB352D
 _MIX_B = 0x846CA68B
+
+# the one shard-placement salt: device repartitioning (core.distributed)
+# and host partitioning (core.sharded_index) must hash identically
+SHARD_SALT = 0xB0C4
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:

@@ -12,7 +12,13 @@ The two query-path kernels launch their binding's ``DEFAULT_THREADS``
 (256) threads a block unless a device cost table is active (``core.costmodel.activate`` calls
 :func:`set_tuned_blocks`): then the autotuner's winner at the capacity
 rung of the call (``kernels.autotune``) sets the block size.  The winners
-only change speed, never outputs, and CPU tensors ignore them."""
+only change speed, never outputs, and CPU tensors ignore them.
+
+A CUDA graph fixes the block size of every launch it captured, so
+:data:`tuned_generation` counts the installs: a cache of captured graphs
+(``core.executables``) drops its graphs when the number moves.  A replay
+launches no binding, so the replaying code adds the launches its graph
+recorded at capture (:func:`launch_counts`, :func:`add_launches`)."""
 
 from __future__ import annotations
 
@@ -26,6 +32,23 @@ from . import sorted_intersect as _si
 
 _tuned_block_q: dict[int, int] | None = None  # rung -> threads a block
 _tuned_block_t: dict[int, int] | None = None
+tuned_generation = 0  # bumped by every set_tuned_blocks
+
+# the bindings whose ``launches`` count kernel launches
+_COUNTED = {"sorted_member_mask": _si, "expand_join_gather": _ej,
+            "fingerprint_rows": _fp, "segment_softmax": _ss}
+
+
+def launch_counts() -> dict[str, int]:
+    """{kernel name: launches so far} of every binding."""
+    return {name: mod.launches for name, mod in _COUNTED.items()}
+
+
+def add_launches(delta: dict[str, int]) -> None:
+    """Add ``delta`` to the bindings' launch counts (a graph replay adds
+    what its capture recorded)."""
+    for name, n in delta.items():
+        _COUNTED[name].launches += n
 
 
 def _check_block(rung, block) -> None:
@@ -40,7 +63,7 @@ def set_tuned_blocks(block_q: dict[int, int] | None,
     block}, from ``DeviceCostTable.block_q``/``block_t``); None/None
     clears back to the bindings' defaults.  Raises on a winner that is
     not a multiple of 32 in [32, 1024]."""
-    global _tuned_block_q, _tuned_block_t
+    global _tuned_block_q, _tuned_block_t, tuned_generation
     for table in (block_q, block_t):
         for rung, block in (table or {}).items():
             _check_block(rung, block)
@@ -48,6 +71,7 @@ def set_tuned_blocks(block_q: dict[int, int] | None,
         if block_q else None
     _tuned_block_t = {int(r): int(b) for r, b in block_t.items()} \
         if block_t else None
+    tuned_generation += 1
 
 
 def _tuned(table: dict[int, int] | None, rung: int) -> int | None:

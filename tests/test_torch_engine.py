@@ -149,3 +149,22 @@ def test_plans_and_caps_equal_jax(setup):
         t_caps = te.estimate_caps(tr, plan_shape(tp), tp)
         j_caps = je.estimate_caps(jr, plan_shape(tp), jp)
         assert dataclasses.astuple(t_caps) == dataclasses.astuple(j_caps)
+
+
+def test_telemetry_reset_zeroes_every_counter():
+    """``tests/test_costmodel.py``'s reset case, on both packages."""
+    te = Engine(tindex.build(example_graph(), 2, device=CPU), device=CPU)
+    je = JEngine(jindex.build(j_example_graph(), 2))
+    from repro.core.query import parse as j_parse
+    from repro_torch.core.query import parse
+
+    te.execute(parse("(l0 . l0) & l0-", None, example_graph().n_labels))
+    je.execute(j_parse("(l0 . l0) & l0-", None, j_example_graph().n_labels))
+    assert _telemetry(te) == _telemetry(je) and te.telemetry.dispatches > 0
+    te.telemetry.union_lanes = 3
+    te.telemetry.reset()
+    je.telemetry.reset()
+    t = te.telemetry
+    assert (t.queries, t.dispatches, t.retry_rungs, t.default_jumps,
+            t.union_lanes) == (0, 0, 0, 0, 0)
+    assert dataclasses.asdict(t) == dataclasses.asdict(je.telemetry)

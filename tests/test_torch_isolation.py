@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -59,7 +60,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "repro_torch.kernels.segment_softmax", "repro_torch.models.gnn",
               "repro_torch.core.baselines", "repro_torch.core.costmodel",
               "repro_torch.core.lifecycle", "repro_torch.kernels.autotune",
-              "repro_torch.checkpoint.checkpoint"):
+              "repro_torch.checkpoint.checkpoint",
+              "repro_torch.core.sharded_index", "repro_torch.core.distributed",
+              "repro_torch.core.executables"):
         assert m in mods
 
 
@@ -140,6 +143,44 @@ def test_new_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch,
         == "cpu"
     with pytest.raises(ValueError, match="index lies on cpu"):
         baselines.PathEngine(path, device="meta")
+
+
+def test_sharded_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch,
+                                                           tmp_path):
+    """The mesh, the sharded backend, its restore and a replica on a mesh
+    raise without a card unless the caller asks for the CPU by name."""
+    from repro_torch.checkpoint import restore_sharded, save_checkpoint
+    from repro_torch.core import distributed, lifecycle
+
+    g = example_graph()
+    index = tindex.build(g, 2, device="cpu")
+    cpu_mesh = distributed.make_mesh(2, device="cpu")
+    Engine(index, mesh=cpu_mesh, device="cpu").backend.save(str(tmp_path / "s"))
+    mi = MaintainableIndex.build(g, 2)
+    from repro_torch.core.service import QueryService
+
+    QueryService(Engine(mi.flush(device="cpu"), device="cpu"),
+                 maintainer=mi).checkpoint(str(tmp_path / "svc"))
+    save_checkpoint(str(tmp_path / "t"), 0, {"w": np.zeros(3, np.float32)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: distributed.make_mesh(2),
+                 lambda: Engine(index, mesh=cpu_mesh),
+                 lambda: distributed.ShardedBackend.from_index(index, cpu_mesh),
+                 lambda: distributed.ShardedBackend.restore(
+                     str(tmp_path / "s"), cpu_mesh),
+                 lambda: lifecycle.restore_sharded_backend(
+                     str(tmp_path / "s"), cpu_mesh),
+                 lambda: lifecycle.load_sharded_arrays(str(tmp_path / "s")),
+                 lambda: lifecycle.restore_service(str(tmp_path / "svc"),
+                                                   mesh=cpu_mesh),
+                 lambda: restore_sharded(str(tmp_path / "t"), 0,
+                                         {"w": np.zeros(3, np.float32)})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert Engine(index, mesh=cpu_mesh, device="cpu").backend.device.type \
+        == "cpu"
+    assert lifecycle.restore_service(str(tmp_path / "svc"), device="cpu",
+                                     mesh=cpu_mesh).engine.mesh is cpu_mesh
 
 
 def test_engine_never_moves_an_index():

@@ -229,3 +229,63 @@ def test_lane_batched_equals_per_lane(seed):
         # and each lane equals the reference
         _assert_rel(single["join"], J(JR.expansion_join, 2, 3, 4)(
             _jrel(*lanes_a[b]), _jrel(*lanes_b[b]), (1,), (("a", 0), ("b", 1)), 32))
+
+
+# ---------------------------------------------------------------------- #
+# the reference's remaining helpers: make_relation, to_numpy,
+# rel_difference, SHARD_SALT, pairs_of_levels
+# ---------------------------------------------------------------------- #
+
+
+def test_difference_and_to_numpy_on_the_reference_test_input():
+    """``tests/test_relational.py``'s case, through ``make_relation``."""
+    def rel(rows, cap):
+        buf = np.full((cap, 2), SENTINEL, np.int32)
+        buf[:len(rows)] = rows
+        return [buf[:, 0], buf[:, 1]], len(rows)
+
+    (ac, an), (bc, bn) = rel([[1, 1], [2, 2], [3, 3]], 8), rel([[2, 2]], 4)
+    t = TR.rel_difference(TR.make_relation(ac, an), TR.make_relation(bc, bn))
+    j = JR.rel_difference(JR.make_relation(ac, an), JR.make_relation(bc, bn))
+    assert TR.to_numpy(t).tolist() == [[1, 1], [3, 3]]
+    assert np.array_equal(TR.to_numpy(t), JR.to_numpy(j))
+    _assert_rel(t, j)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_make_relation_and_difference(seed):
+    rng = np.random.default_rng(700 + seed)
+    a = _padded(rng, 32, 3, sort_keys=True, lo=0, hi=4)
+    b = _padded(rng, 24, 2, sort_keys=True, lo=0, hi=4)
+    ta, ja = TR.make_relation(*a), JR.make_relation(*a)
+    _assert_rel(ta, ja)
+    _assert_rel(TR.make_relation(a[0]), JR.make_relation(a[0]))
+    for nk in (1, 2):
+        _assert_rel(TR.rel_difference(ta, _trel(*b), nk),
+                    J(JR.rel_difference, 2)(ja, _jrel(*b), nk))
+    assert np.array_equal(TR.to_numpy(ta), JR.to_numpy(ja))
+
+
+def test_shard_salt_and_mix32():
+    assert TR.SHARD_SALT == JR.SHARD_SALT
+    keys = np.array([0, 1, 7, 2**30, SENTINEL - 1, -1, INT_MIN], np.int32)
+    got = TR.mix32(TR._u32(torch.from_numpy(keys)), TR.SHARD_SALT).numpy()
+    exp = np.asarray(JR.mix32(jnp.asarray(keys), JR.SHARD_SALT))
+    assert np.array_equal(got.astype(np.uint32), exp)
+
+
+@pytest.mark.parametrize("union_cap", [None, 64])
+def test_pairs_of_levels(union_cap):
+    from repro.core import paths as jpaths
+    from repro.core.graph import example_graph as j_example
+    from repro_torch.core import paths as tpaths
+    from repro_torch.core.graph import example_graph as t_example
+
+    caps = (32, 128)
+    t_lv = tpaths.enumerate_path_levels(
+        tpaths.device_graph(t_example(), "cpu"), 2, caps)
+    j_lv = jpaths.enumerate_path_levels(jpaths.device_graph(j_example()), 2,
+                                        caps)
+    for cap in (16, 128):  # 16 rows cannot hold P^{<=2}: the overflow case
+        _assert_rel(tpaths.pairs_of_levels(t_lv, cap, union_cap),
+                    jpaths.pairs_of_levels(j_lv, cap, union_cap))
