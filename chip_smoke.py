@@ -71,16 +71,26 @@ Phases, each printed on its own lines:
                  live reshard;
 14. edge_softmax — the GNN substrate's edge softmax at the repository's graph
                  shapes, float32 and bfloat16;
+15. cluster    — the phase-4 index served by Engine(index, cluster=2): two
+                 worker processes on the card (each PROMOTE reply must name
+                 it), phase 5's draws through execute equal to the local
+                 engine and the reference, one batch, a QueryService read
+                 pass (DISPATCH / HARVEST), one rebind (one FLUSH_REBIND),
+                 a service checkpoint (the CHECKPOINT barrier and the respawn
+                 base), a crash mid-round and a hard kill with every answer
+                 checked after each, resize to 4 workers and back;
    then the kernels again, on the built index's own arrays and on the inputs
    the paths gave them, with their times.
 
-Each path (phases 4-5, 6, 7, 8's two services, 9 to 14) is driven with the
+Each path (phases 4-5, 6, 7, 8's two services, 9 to 15) is driven with the
 launch counts set to 0 just before it and read just after; a path that never
 launched one of its kernels fails.  A graph replay adds the launches its
-capture recorded, so the counts are the kernels that ran.  The last two lines are the kernels' JSON
-record and {"ok": true, "device": {...}}.  Any failure exits non-zero;
-without a CUDA card, or outside a checkout of the repository, the script
-exits non-zero before printing any result.
+capture recorded, so the counts are the kernels that ran.  The cluster's
+kernels run in its worker processes, which report their launches at each
+CHECKPOINT barrier; phase 15 sums those reports.  The last two lines are
+the kernels' JSON record and {"ok": true, "device": {...}}.  Any failure
+exits non-zero; without a CUDA card, or outside a checkout of the
+repository, the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -860,6 +870,212 @@ def check_softmax_parity(kernel, plain, tables, cases) -> dict:
                  f"(max abs err {err})")
         worst[name] = max(worst.get(name, 0.0), err)
     return worst
+
+
+# ---------------------------------------------------------------------- #
+# phase 15: the cluster runtime (worker processes on the card)
+# ---------------------------------------------------------------------- #
+
+
+def cluster_phase(index, rebuild, per_template, engine, kind, ckpt_dir,
+                  who) -> dict:
+    """``Engine(index, cluster=2)`` on the index's device: phase 5's draws
+    through execute (held to the reference and the local ``engine``), one
+    batch, a QueryService read pass (DISPATCH/HARVEST), one rebind to
+    ``rebuild()``, a service checkpoint, a crash mid-round and a hard kill
+    (respawn from the checkpoint), resize to 4 and back.  Every worker
+    must report the device named ``kind``.  Returns the kernel launches
+    the workers reported at their CHECKPOINT barriers."""
+    from repro_torch.core import cluster as ccl
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.service import QueryService
+
+    draws = [(name, q, exp) for name in TEMPLATES
+             for q, exp in per_template[name]]
+    worker_counts = {name: 0 for name in KERNELS}
+    peaks = {}
+
+    def barrier(runtime):
+        reports = runtime.checkpoint_barrier(0)
+        for rank, rep in reports.items():
+            if rep["device"] != kind:
+                fail(f"cluster: worker {rank} reports device "
+                     f"{rep['device']!r}, not {kind!r}")
+            for name, n in rep["launches"].items():
+                worker_counts[name] += n
+            peaks[rank] = max(peaks.get(rank, 0), rep["max_memory_allocated"])
+        return reports
+
+    def check_promoted(runtime, what):
+        for rank, rep in sorted(runtime.promoted.items()):
+            if rep["device"] != kind:
+                fail(f"cluster {what}: worker {rank}'s PROMOTE reply names "
+                     f"{rep['device']!r}, not {kind!r}")
+
+    def check_all(cl_engine, what):
+        """Every draw through the cluster, equal to the reference and the
+        local engine; returns per-template medians (ms) of the cluster's
+        execute and of the local engine's, timed in turns."""
+        lat, loc = {}, {}
+        for name, q, exp in draws:
+            t0 = time.perf_counter()
+            got = cl_engine.execute(q)
+            lat.setdefault(name, []).append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            local = engine.execute(q)
+            loc.setdefault(name, []).append(time.perf_counter() - t0)
+            if not np.array_equal(got, exp) or not np.array_equal(got, local):
+                fail(f"cluster {what} {name} {q!r}: answer ({len(got)} "
+                     f"pairs) differs from the reference or the local engine")
+        return ({n: 1e3 * float(np.median(v)) for n, v in lat.items()},
+                {n: 1e3 * float(np.median(v)) for n, v in loc.items()})
+
+    def time_to_answer(cl_engine, t_fault):
+        _name, q, exp = draws[0]
+        got = cl_engine.execute(q)
+        dt = time.perf_counter() - t_fault
+        if not np.array_equal(got, exp):
+            fail(f"cluster: first answer after a fault differs ({q!r})")
+        return dt
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    runtime = ccl.ClusterRuntime(index, 2, max_workers=4, reply_timeout=300,
+                                 spawn_timeout=300)
+    try:
+        cl_engine = Engine(index, cluster=runtime, device=index.device)
+        t_start = time.perf_counter() - t0
+        check_promoted(runtime, "start")
+        say(f"[cluster] Engine(index, cluster=2) on {kind}: started in "
+            f"{t_start:.2f} s (make_slices, spawn, PROMOTE); spawn to "
+            f"PROMOTE a worker " + ", ".join(
+                f"rank {r} {s:.2f} s" for r, s in
+                sorted(runtime.promote_seconds.items()))
+            + "; every PROMOTE reply names the card (" + ", ".join(
+                f"rank {r}: {p['device']}, {p['devices']} card(s)"
+                for r, p in sorted(runtime.promoted.items())) + ")")
+        for name in TEMPLATES:  # each worker's first walk of each template
+            q, exp = per_template[name][0]
+            if not np.array_equal(cl_engine.execute(q), exp):
+                fail(f"cluster warm-up {name} {q!r}: answer differs")
+        barrier(runtime)
+        cl_ms2, loc_ms = check_all(cl_engine, "2 workers")
+        reps = barrier(runtime)
+        n_ex = sum(r["exchanges"] for r in reps.values())
+        n_bytes = sum(r["sent_bytes"] for r in reps.values())
+        say(f"[cluster] {len(draws)} draws of phase 5 through execute at 2 "
+            f"workers: every answer np.array_equal to the local engine's "
+            f"and the scipy.sparse reference; {n_ex / len(draws):.1f} "
+            f"exchanges a query (summed over the workers), "
+            f"{n_bytes / len(draws):.0f} bytes a query through the fabric")
+        batch_qs = per_template["T"]
+        t0 = time.perf_counter()
+        batch = cl_engine.execute_batch([q for q, _ in batch_qs])
+        t_batch = time.perf_counter() - t0
+        for (q, exp), got in zip(batch_qs, batch):
+            if not np.array_equal(got, exp):
+                fail(f"cluster batch: {q!r} differs from the reference")
+        say(f"[cluster] one batch of {len(batch_qs)} T queries through "
+            f"execute_batch (lane-batched walks): {t_batch:.3f} s, equal to "
+            f"the reference")
+
+        dispatches = runtime.instructions[ccl.DISPATCH]
+        harvests = runtime.instructions[ccl.HARVEST]
+        svc = QueryService(cl_engine, max_batch=64, max_queue=256,
+                           auto_flush=False)
+        accepted = []
+        t0 = time.perf_counter()
+        for i, (_name, q, exp) in enumerate(draws):
+            req = svc.submit(q, tenant=who[i % len(who)])
+            if not req.shed:
+                accepted.append((req, exp))
+        svc.flush()
+        wall = time.perf_counter() - t0
+        for req, exp in accepted:
+            if not req.done or req.result is None:
+                fail(f"cluster service: accepted request {req.rid} lost")
+            if not np.array_equal(req.result, exp):
+                fail(f"cluster service: {req.query!r} answer differs")
+        used = (runtime.instructions[ccl.DISPATCH] - dispatches,
+                runtime.instructions[ccl.HARVEST] - harvests)
+        if used[0] == 0 or used[1] < used[0]:
+            fail(f"cluster service: DISPATCH/HARVEST {used} not used")
+        say(f"[cluster] QueryService read pass over the {len(draws)} draws: "
+            f"{len(accepted)} accepted, none lost, all equal to the "
+            f"reference; {used[0]} DISPATCH / {used[1]} HARVEST; {wall:.2f} s")
+
+        new_index = rebuild()
+        rebinds = runtime.instructions[ccl.FLUSH_REBIND]
+        t0 = time.perf_counter()
+        cl_engine.rebind(new_index)
+        t_rebind = time.perf_counter() - t0
+        if runtime.instructions[ccl.FLUSH_REBIND] != rebinds + 1:
+            fail("cluster: rebind did not broadcast exactly one FLUSH_REBIND")
+        check_all(cl_engine, "after rebind")
+        say(f"[cluster] rebind to a rebuild of the phase-4 graph: one "
+            f"FLUSH_REBIND broadcast in {t_rebind:.3f} s (make_slices "
+            f"included); every answer equal again")
+
+        t0 = time.perf_counter()
+        step = QueryService(cl_engine).checkpoint(str(ckpt_dir))
+        t_ckpt = time.perf_counter() - t0
+        if runtime._ckpt != (str(ckpt_dir), step):
+            fail("cluster: the checkpoint was not recorded as respawn base")
+        say(f"[cluster] QueryService.checkpoint: CHECKPOINT barrier + save "
+            f"in {t_ckpt:.2f} s ({dir_bytes(ckpt_dir)} bytes), recorded as "
+            f"the respawn base")
+
+        recoveries = runtime.recoveries
+        t0 = time.perf_counter()
+        runtime.inject_crash(0)
+        t_crash = time_to_answer(cl_engine, t0)
+        check_all(cl_engine, "after a crash mid-round")
+        t0 = time.perf_counter()
+        runtime._workers[1].proc.kill()
+        t_kill = time_to_answer(cl_engine, t0)
+        check_all(cl_engine, "after a kill")
+        if runtime.recoveries < recoveries + 2:
+            fail(f"cluster: recoveries {recoveries} -> {runtime.recoveries} "
+                 "after two faults")
+        check_promoted(runtime, "respawn")
+        say(f"[cluster] inject_crash(0) mid-round: fault to next answer "
+            f"{t_crash:.2f} s; proc.kill() of rank 1: {t_kill:.2f} s "
+            f"(respawn from the checkpoint: load_state + make_slices in the "
+            f"worker); recoveries {recoveries} -> {runtime.recoveries}; "
+            f"every answer equal after each")
+
+        t0 = time.perf_counter()
+        cl_engine.backend.resize(4)
+        t_up = time.perf_counter() - t0
+        cl_ms4, loc_ms4 = check_all(cl_engine, "4 workers")
+        if sorted(barrier(runtime)) != [0, 1, 2, 3]:
+            fail("cluster: the barrier at 4 workers did not hear 4 ranks")
+        t0 = time.perf_counter()
+        cl_engine.backend.resize(2)
+        t_down = time.perf_counter() - t0
+        check_all(cl_engine, "back at 2 workers")
+        barrier(runtime)
+        say(f"[cluster] resize 2 -> 4 in {t_up:.2f} s, 4 -> 2 in "
+            f"{t_down:.2f} s (RESHARD broadcast, make_slices included); "
+            f"every answer equal at 4 and back at 2; every rank reported "
+            f"the card at the barriers")
+        say("[cluster] execute median ms per template, 2 workers / 4 workers "
+            "/ local replayed engine (its medians in the same two passes): "
+            + ", ".join(f"{n} {cl_ms2[n]:.3f} / {cl_ms4[n]:.3f} / "
+                        f"{loc_ms[n]:.3f}, {loc_ms4[n]:.3f}"
+                        for n in TEMPLATES))
+        say("[cluster] peak device memory a worker: " + ", ".join(
+            f"rank {r} {p / 2**30:.3f} GiB" for r, p in sorted(peaks.items()))
+            + f"; instructions {dict(runtime.instructions)}")
+    finally:
+        runtime.shutdown()
+    say(f"[cluster] phase {time.perf_counter() - t_phase:.1f} s; kernel "
+        f"launches in the workers {worker_counts}")
+    for name in ("sorted_member_mask", "expand_join_gather"):
+        if worker_counts[name] == 0:
+            fail(f"the cluster path never launched {name} in a worker")
+    return worker_counts
 
 
 # ---------------------------------------------------------------------- #
@@ -1991,6 +2207,16 @@ def main() -> int:
         f"version")
     path_counts["edge_softmax"] = read_counts("edge_softmax (GNN substrate)",
                                               ("segment_softmax",))
+
+    # ---- 15. cluster: worker processes on the card ------------------- #
+    # The cluster path's launches are the workers', reported at each
+    # CHECKPOINT barrier (cluster_phase); the coordinator's counts are set
+    # to 0 too, its local-engine comparisons are not the path.
+    zero_counts()
+    path_counts["cluster"] = cluster_phase(
+        index, lambda: cindex.build(g, K, caps=caps), per_template, engine,
+        kind, ckpt_root / "cluster", who)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
     for name, fn in real.items():
         setattr(ops, name, fn)
     counts = {name: sum(c[name] for c in path_counts.values()) for name in KERNELS}

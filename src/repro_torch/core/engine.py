@@ -10,9 +10,11 @@ len) ranges of each LOOKUP) streams to the device as one small tensor,
 so queries of one template share one plan shape and batch together.
 
 The physical algebra lives in ``core.backend`` (the single-device
-:class:`~repro_torch.core.backend.LocalBackend`) and ``core.distributed``
+:class:`~repro_torch.core.backend.LocalBackend`), ``core.distributed``
 (:class:`~repro_torch.core.distributed.ShardedBackend`, the same plan
-walker over a sharded index).  The :class:`Engine` here owns everything
+walker over a sharded index) and ``core.cluster``
+(:class:`~repro_torch.core.cluster.ClusterBackend`, the same walker in
+persistent worker processes).  The :class:`Engine` here owns everything
 backend-independent: planning, the host-side
 capacity estimator, the overflow retry schedule (the capacity ladder is
 specified in the ``core.backend`` module docstring), plan-shape
@@ -116,13 +118,17 @@ class Engine:
     it is None.  The engine never moves an index; it raises when the
     index lies elsewhere, so a CPU run is always asked for by name.
 
-    ``mesh``/``axis`` select the backend: None (default) binds the
-    single-device :class:`LocalBackend`; a mesh
+    ``mesh``/``axis``/``cluster`` select the backend: None (default)
+    binds the single-device :class:`LocalBackend`; a mesh
     (:func:`repro_torch.core.distributed.make_mesh`, on the same device)
     binds a :class:`~repro_torch.core.distributed.ShardedBackend` that
-    shards the index over the mesh axis.  Either way the public API —
-    ``execute``, ``execute_batch``, ``rebind`` — is the same, and so are
-    the answers.
+    shards the index over the mesh axis; ``cluster=n`` (an int, or a
+    :class:`~repro_torch.core.cluster.ClusterRuntime` on the engine's
+    device, started on first use) binds a
+    :class:`~repro_torch.core.cluster.ClusterBackend` serving off ``n``
+    persistent worker *processes* on the engine's device.  Whichever
+    way, the public API — ``execute``, ``execute_batch``, ``rebind`` — is
+    the same, and so are the answers.
 
     ``optimize`` selects the planner: True (default) runs the cost-based
     optimizer over the index statistics; False pins the syntactic
@@ -139,13 +145,18 @@ class Engine:
     """
 
     def __init__(self, index: CPQxIndex, mesh=None, axis: str = "engine",
-                 optimize: bool = True, device=None, cost_table=None):
+                 optimize: bool = True, device=None, cost_table=None,
+                 cluster=None):
+        if mesh is not None and cluster is not None:
+            raise ValueError("mesh and cluster are mutually exclusive "
+                             "backend selectors")
         self.device = resolve_device(device)
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"the mesh lies on {mesh.device}, the engine "
                              f"expects {self.device}")
         self.mesh = mesh
         self.axis = axis
+        self.cluster = cluster
         self.optimize = optimize
         self.cost_table = cost_table
         self.telemetry = LadderTelemetry()
@@ -159,7 +170,9 @@ class Engine:
         default caps, and rebuilds the backend — closing the old one, whose
         captured graphs read the old arrays — or, for a mesh engine,
         reshards into the existing backend (its graphs survive while the
-        shard shapes hold).  ``stats`` supplies a pre-built statistics
+        shard shapes hold), or, for a cluster engine, broadcasts one
+        FLUSH_REBIND (INTEREST_BATCH when the interest set moved) into the
+        same fleet.  ``stats`` supplies a pre-built statistics
         view of this exact index instead (a checkpoint restore passes one
         whose endpoint cache is pre-warmed from the donor)."""
         if index.device != self.device:
@@ -173,7 +186,27 @@ class Engine:
         self._l2c_host = self.stats.l2c_cls
         self._default_caps = default_caps(index)  # one device sync, here
         prev = getattr(self, "backend", None)
-        if self.mesh is None:
+        if self.cluster is not None:
+            # engine <- cluster is one-way
+            from .cluster import ClusterBackend, ClusterRuntime
+
+            if isinstance(prev, ClusterBackend):
+                prev.reshard(index)  # one state broadcast, same fleet
+                return
+            if isinstance(self.cluster, ClusterRuntime):
+                if self.cluster.device != self.device:
+                    raise ValueError(
+                        f"the cluster runs on {self.cluster.device}, the "
+                        f"engine expects {self.device}")
+                if not self.cluster.started:
+                    self.cluster.start(index)
+                self.backend = ClusterBackend(self.cluster)
+                if self.cluster.index is not index:
+                    self.backend.reshard(index)
+            else:
+                self.backend = ClusterBackend.from_index(
+                    index, int(self.cluster), device=self.device)
+        elif self.mesh is None:
             self.backend: ExecutionBackend = LocalBackend(
                 index.arrays, index.n_vertices)
         else:

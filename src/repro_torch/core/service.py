@@ -666,9 +666,9 @@ class QueryService:
         self.flush()  # drain pending writes AND reads at one epoch
         if step is None:
             step = self._ckpt_step
-        # a cluster backend (none in this package yet) checkpoints through
-        # a barrier before the snapshot is cut, and learns the committed
-        # step after it: both hooks are optional
+        # a cluster backend (core.cluster) checkpoints through a barrier
+        # before the snapshot is cut, and learns the committed step after
+        # it (its respawn base): both hooks are optional
         quiesce = getattr(self.engine.backend, "quiesce", None)
         if quiesce is not None:
             quiesce(step)

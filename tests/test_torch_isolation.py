@@ -62,8 +62,38 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "repro_torch.core.lifecycle", "repro_torch.kernels.autotune",
               "repro_torch.checkpoint.checkpoint",
               "repro_torch.core.sharded_index", "repro_torch.core.distributed",
-              "repro_torch.core.executables"):
+              "repro_torch.core.executables", "repro_torch.core.cluster",
+              "repro_torch.launch.workers"):
         assert m in mods
+
+
+def test_a_worker_process_imports_neither_jax_nor_the_jax_package():
+    """``worker_main`` — the spawn target of every cluster worker — run in
+    a fresh interpreter over in-process queues: it builds its state,
+    answers a CHECKPOINT and a SHUTDOWN, and leaves jax and every repro
+    module out of sys.modules."""
+    code = (
+        "import queue, sys, threading\n"
+        "from repro_torch.launch.workers import worker_main\n"
+        "class Beat:\n"
+        "    value = 0.0\n"
+        "iq, rq = queue.Queue(), queue.Queue()\n"
+        "iq.put((1, 'CHECKPOINT', {'step': 0}))\n"
+        "iq.put((2, 'SHUTDOWN', None))\n"
+        "worker_main(0, iq, rq, [queue.Queue()], [queue.Queue()], Beat(),\n"
+        "            threading.Event(), 'cpu')\n"
+        "replies = [rq.get(timeout=5)[2] for _ in range(2)]\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')\n"
+        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
+        "assert 'repro_torch.core.cluster' in sys.modules\n"
+        "print(replies, repr(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['ok', 'ok'] []"
 
 
 def test_no_jax_or_repro_imports_in_the_source():
@@ -181,6 +211,30 @@ def test_sharded_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch,
         == "cpu"
     assert lifecycle.restore_service(str(tmp_path / "svc"), device="cpu",
                                      mesh=cpu_mesh).engine.mesh is cpu_mesh
+
+
+def test_cluster_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    """``Engine(index, cluster=n)``, a runtime asked for the card and the
+    worker demo raise without a card before any worker is spawned, unless
+    the caller asks for the CPU by name."""
+    from repro_torch.core import cluster
+    from repro_torch.launch import workers
+
+    index = tindex.build(example_graph(), 2, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spawned = []
+    monkeypatch.setattr(cluster.ClusterRuntime, "_spawn",
+                        lambda self, rank: spawned.append(rank))
+    for call in (lambda: Engine(index, cluster=2),
+                 lambda: cluster.ClusterRuntime(index, 1, device="cuda"),
+                 lambda: cluster.ClusterRuntime(None, 1),
+                 lambda: cluster.WorkerState(0, [], [], None, "cuda"),
+                 lambda: workers.main(["--workers", "1", "--queries", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert spawned == []
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        Engine(index, mesh=object(), cluster=2, device="cpu")
 
 
 def test_engine_never_moves_an_index():
