@@ -79,12 +79,24 @@ Phases, each printed on its own lines:
                  a service checkpoint (the CHECKPOINT barrier and the respawn
                  base), a crash mid-round and a hard kill with every answer
                  checked after each, resize to 4 workers and back;
+16. gnn        — the GNN substrate: GatedGCN, EGNN, MACE and GraphCast at
+                 their published configs, output, loss and gradients on the
+                 card held to the port on the CPU at molecule and
+                 full_graph_sm; then at minibatch_lg (random_csr(232 965,
+                 avg_degree=492), 1 024 seeds sampled at fanout (15, 10) by
+                 the port's sampler) a forward held to float64, EGNN and
+                 MACE under a rotation and shift, one warm-up and five timed
+                 gnn_steps with peak memory and the device-busy share; then
+                 the CPQx-features driver (launch.gnn_features) on the card;
    then the kernels again, on the built index's own arrays and on the inputs
    the paths gave them, with their times.
 
-Each path (phases 4-5, 6, 7, 8's two services, 9 to 15) is driven with the
+Each path (phases 4-5, 6, 7, 8's two services, 9 to 16) is driven with the
 launch counts set to 0 just before it and read just after; a path that never
-launched one of its kernels fails.  A graph replay adds the launches its
+launched one of its kernels fails.  The GNN models' kernel set is empty
+(their substrate op is index_add, and no architecture calls edge_softmax):
+phase 16 fails if they launch any; the features driver's CPQx build must
+launch fingerprint_rows.  A graph replay adds the launches its
 capture recorded, so the counts are the kernels that ran.  The cluster's
 kernels run in its worker processes, which report their launches at each
 CHECKPOINT barrier; phase 15 sums those reports.  The last two lines are
@@ -208,19 +220,24 @@ def _device_us(evt) -> float:
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device time of one ``fn`` call — every kernel, copy and fill it
     launched — from the profiler's trace of ``iters`` calls.  Host gaps
-    between launches are not counted.  Falls back to :func:`cuda_ms` (and
-    says so) where the profiler sees no device."""
+    between launches are not counted.  A trace with no device event is
+    taken once more; falls back to :func:`cuda_ms` (and says so) where
+    the profiler still sees no device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_device_us(e) for e in prof.key_averages())
+    total = 0.0
+    for _ in range(2):  # a trace now and then records no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_device_us(e) for e in prof.key_averages())
+        if total > 0:
+            break
     if total <= 0:  # no device trace: fall back to event timing
         say("[kernels] the profiler recorded no device time; CUDA events used")
         return cuda_ms(fn, iters, warmup)
@@ -1076,6 +1093,326 @@ def cluster_phase(index, rebuild, per_template, engine, kind, ckpt_dir,
         if worker_counts[name] == 0:
             fail(f"the cluster path never launched {name} in a worker")
     return worker_counts
+
+
+# ---------------------------------------------------------------------- #
+# phase 16: the GNN substrate, train steps at the published full configs
+# ---------------------------------------------------------------------- #
+
+GNN_ARCHS = ("gatedgcn", "egnn", "mace", "graphcast")
+GNN_GRAPH = (232_965, 492)  # minibatch_lg's CSR graph: nodes, mean degree
+GNN_SEEDS = 1024  # seed nodes of the sampled batch
+GNN_FANOUT = (15, 10)
+GNN_STEPS = 5  # timed train steps, after one warm-up
+GNN_CHECK_SHAPES = ("molecule", "full_graph_sm")  # card vs CPU
+# rel_err tolerances: card vs CPU (output and loss; each gradient: the
+# float32 sums' order differs, and GraphCast's 16 unnormalised layers
+# amplify it), the float32 forward vs float64 at minibatch_lg, EGNN /
+# MACE outputs under a rotation and shift of the positions
+GNN_CPU_TOL = {"output": 1e-4, "loss": 1e-4, "grads": 1e-2}
+GNN_F64_TOL = 1e-4
+GNN_ROT_TOL = 1e-4
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float64 on the host."""
+    got = got.detach().double().cpu()
+    want = want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def gnn_host_graph(shape, rng, sub=None) -> dict:
+    """numpy arrays of one input graph at ``shape`` (a ``ShapeSpec`` of
+    ``configs.gnn_shapes``): molecule as 128 disjoint graphs, a full
+    graph with uniform random edges, or the padded subgraph ``sub`` the
+    fanout sampler drew.  Features, positions drawn from ``rng``."""
+    dims = shape.dims
+    if shape.kind == "batched_graphs":
+        b, n1, e1 = dims["batch"], dims["n_nodes"], dims["n_edges"]
+        off = (n1 * np.arange(b))[:, None]
+        senders = (rng.integers(0, n1, (b, e1)) + off).reshape(-1)
+        receivers = (rng.integers(0, n1, (b, e1)) + off).reshape(-1)
+        n, graph_ids = b * n1, np.repeat(np.arange(b), n1)
+        node_mask, edge_mask = np.ones(n, bool), np.ones(b * e1, bool)
+    elif shape.kind == "sampled":
+        senders, receivers = sub.senders, sub.receivers
+        node_mask, edge_mask = sub.node_mask, sub.edge_mask
+        n, graph_ids = len(node_mask), np.zeros(len(node_mask))
+    else:
+        n, e = dims["n_nodes"], dims["n_edges"]
+        senders, receivers = rng.integers(0, n, e), rng.integers(0, n, e)
+        node_mask, edge_mask = np.ones(n, bool), np.ones(e, bool)
+        graph_ids = np.zeros(n)
+    e = len(senders)
+    return dict(
+        node_feat=rng.standard_normal((n, dims["d_feat"]), dtype=np.float32),
+        edge_feat=rng.standard_normal((e, 4), dtype=np.float32),
+        senders=senders.astype(np.int32), receivers=receivers.astype(np.int32),
+        node_mask=node_mask, edge_mask=edge_mask,
+        positions=rng.standard_normal((n, 3), dtype=np.float32),
+        graph_ids=graph_ids.astype(np.int32),
+        n_graphs=dims.get("batch", 1))
+
+
+def gnn_batch(G, cfg, arrs, dev):
+    """The ``GraphBatch`` that ``gnn_cell`` feeds ``cfg``: edge features
+    only where the config reads them, positions for EGNN and MACE."""
+    import torch
+
+    def t(key):
+        return torch.from_numpy(arrs[key]).to(dev)
+
+    return G.GraphBatch(
+        node_feat=t("node_feat"),
+        edge_feat=t("edge_feat") if cfg.d_edge_in else None,
+        senders=t("senders"), receivers=t("receivers"),
+        node_mask=t("node_mask"), edge_mask=t("edge_mask"),
+        positions=t("positions") if cfg.arch in ("egnn", "mace") else None,
+        graph_ids=t("graph_ids"), n_graphs=arrs["n_graphs"])
+
+
+def gnn_loss_and_grads(G, cfg, params, g, targets):
+    """(no-grad output, loss, gradients by parameter name) of one batch."""
+    import torch
+
+    with torch.no_grad():
+        out = G.apply(cfg, params, g)
+    named = dict(params.named_parameters())
+    loss, _ = G.train_loss(cfg, params, g, targets)
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True,
+                                materialize_grads=True)
+    return out, loss.detach(), dict(zip(named, grads))
+
+
+def mace_invariants_einsum(a0, a1, a2):
+    """MACE's invariants written as the reference writes them: einsums,
+    which run as batched GEMMs of N*C 3x3 blocks on the card."""
+    import torch
+
+    b2b = torch.einsum("nci,nci->nc", a1, a1)
+    b2c = torch.einsum("ncij,ncij->nc", a2, a2)
+    a2a1 = torch.einsum("ncij,ncj->nci", a2, a1)
+    b3b = torch.einsum("nci,nci->nc", a1, a2a1)
+    b3d = torch.einsum("ncij,ncjk,ncki->nc", a2, a2, a2)
+    return torch.stack([a0, a0 * a0, b2b, b2c, a0 * b2b, b3b, a0 * b2c, b3d], 1)
+
+
+def gnn_phase(dev) -> dict:
+    """Phase 16: each of the four GNN architectures at its published
+    config (``d_in`` replaced by the shape's ``d_feat``, as ``gnn_cell``
+    does) held card vs CPU at ``molecule`` and ``full_graph_sm``, then
+    trained on one ``minibatch_lg`` batch that the port's sampler draws:
+    a no-grad forward against float64, one warm-up ``gnn_step`` and
+    ``GNN_STEPS`` timed ones.  Returns each architecture's record.  No
+    hand-written kernel is on this path."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch, gnn_shapes
+    from repro_torch.data.sampler import random_csr, sample_fanout
+    from repro_torch.launch.steps import gnn_step
+    from repro_torch.models import gnn as G
+    from repro_torch.train.optim import adamw_init
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    shapes = {s.name: s for s in gnn_shapes()}
+    say(f"[gnn] torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32} (PyTorch's default, left "
+        f"as is: float32 matmuls in full float32)")
+    ogb = shapes["ogb_products"].dims
+    say(f"[gnn] ogb_products ({ogb['n_nodes']} nodes, {ogb['n_edges']} edges) "
+        f"is not run through the models: one (E, 70) float32 edge tensor is "
+        f"{ogb['n_edges'] * 70 * 4 / 1e9:.1f} GB and GatedGCN's forward keeps "
+        f"four to five live, so no architecture's step fits one card at full "
+        f"width; it waits for a multi-card engine (ROADMAP item 15)")
+
+    # ---- card vs CPU at the two small shapes ------------------------- #
+    rng = np.random.default_rng(SEED)
+    for name in GNN_CHECK_SHAPES:
+        shape = shapes[name]
+        arrs = gnn_host_graph(shape, rng)
+        for arch in GNN_ARCHS:
+            cfg = dataclasses.replace(get_arch(arch).config,
+                                      d_in=shape.dims["d_feat"])
+            targets = rng.standard_normal(
+                (len(arrs["node_mask"]), cfg.d_out), dtype=np.float32)
+            on_cpu = G.init_params(cfg, torch.Generator().manual_seed(SEED), cpu)
+            on_dev = copy.deepcopy(on_cpu).to(dev)
+            res = [gnn_loss_and_grads(G, cfg, p, gnn_batch(G, cfg, arrs, d),
+                                      torch.from_numpy(targets).to(d))
+                   for p, d in ((on_dev, dev), (on_cpu, cpu))]
+            (out_d, loss_d, grads_d), (out_c, loss_c, grads_c) = res
+            errs = {"output": rel_err(out_d, out_c),
+                    "loss": rel_err(loss_d, loss_c),
+                    "grads": max(rel_err(grads_d[k], grads_c[k])
+                                 for k in grads_c)}
+            finite = all(bool(torch.isfinite(x).all()) for x in
+                         [out_d, loss_d, *grads_d.values()])
+            if not finite or out_d.shape != (len(arrs["node_mask"]), cfg.d_out) \
+                    or any(errs[k] > GNN_CPU_TOL[k] for k in errs):
+                fail(f"gnn {arch} at {name}: card vs CPU {errs} (tolerance "
+                     f"{GNN_CPU_TOL}), finite {finite}, shape {tuple(out_d.shape)}")
+            say(f"[gnn] {arch} at {name} (N={len(arrs['node_mask'])}, "
+                f"E={len(arrs['senders'])}, d_feat {shape.dims['d_feat']}): "
+                f"loss {float(loss_c):.4g}; output, loss and {len(grads_c)} "
+                f"gradients on the card equal the port on the CPU, max |diff| "
+                f"/ max |CPU| {errs} (tolerance {GNN_CPU_TOL})")
+            del on_cpu, on_dev, res, out_d, grads_d, out_c, grads_c
+
+    # ---- minibatch_lg: the sampled batch ----------------------------- #
+    shape = shapes["minibatch_lg"]
+    t0 = time.perf_counter()
+    csr = random_csr(GNN_GRAPH[0], avg_degree=GNN_GRAPH[1], seed=SEED)
+    t_csr = time.perf_counter() - t0
+    seeds = np.random.default_rng(SEED).choice(GNN_GRAPH[0], GNN_SEEDS,
+                                               replace=False)
+    t0 = time.perf_counter()
+    sub = sample_fanout(csr, seeds, GNN_FANOUT, seed=SEED)
+    t_sample = time.perf_counter() - t0
+    arrs = gnn_host_graph(shape, rng, sub)
+    n, e = len(arrs["node_mask"]), len(arrs["senders"])
+    say(f"[gnn] minibatch_lg: random_csr({GNN_GRAPH[0]}, avg_degree="
+        f"{GNN_GRAPH[1]}) {len(csr.indices)} edges ({csr.indices.nbytes / 1e6:.0f} "
+        f"MB of int32 indices) in {t_csr:.2f} s; sample_fanout of {GNN_SEEDS} "
+        f"seeds, fanout {GNN_FANOUT}: {n} padded nodes ({int(sub.node_mask.sum())} "
+        f"real), {e} padded edges ({int(sub.edge_mask.sum())} real) in "
+        f"{t_sample:.2f} s")
+    del csr
+    records = {}
+    q = torch.tensor([[np.cos(0.7), -np.sin(0.7), 0], [np.sin(0.7),
+                      np.cos(0.7), 0], [0, 0, 1]], dtype=torch.float32, device=dev)
+    for arch in GNN_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch).config,
+                                  d_in=shape.dims["d_feat"])
+        g = gnn_batch(G, cfg, arrs, dev)
+        targets = torch.from_numpy(rng.standard_normal(
+            (n, cfg.d_out), dtype=np.float32)).to(dev)
+        params = G.init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = G.apply(cfg, params, g)
+            torch.cuda.synchronize()
+            fwd_ms = 1e3 * (time.perf_counter() - t0)
+            out64 = G.apply(dataclasses.replace(cfg, param_dtype="float64"),
+                            copy.deepcopy(params).double(), g)
+            f64_err = rel_err(out, out64)
+            del out64
+            rot_err = None
+            if g.positions is not None:
+                rot_err = rel_err(G.apply(cfg, params, g._replace(
+                    positions=g.positions @ q.T + 3.0)), out)
+        if out.shape != (n, cfg.d_out) or not bool(torch.isfinite(out).all()) \
+                or f64_err > GNN_F64_TOL:
+            fail(f"gnn {arch} at minibatch_lg: forward of shape "
+                 f"{tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}, "
+                 f"{f64_err} from float64 (tolerance {GNN_F64_TOL})")
+        if rot_err is not None and rot_err > GNN_ROT_TOL:
+            fail(f"gnn {arch} at minibatch_lg: output moved {rot_err} under a "
+                 f"rotation and shift of the positions (tolerance {GNN_ROT_TOL})")
+        del out
+
+        _, loss0, grads0 = gnn_loss_and_grads(G, cfg, params, g, targets)
+        grads_finite = all(bool(torch.isfinite(x).all()) for x in grads0.values())
+        # the global norm in float64: the step's float32 sum of squares
+        # can overflow where every gradient is finite
+        norm64 = float(torch.sqrt(sum(torch.sum(x.double() ** 2)
+                                      for x in grads0.values())))
+        if not grads_finite or not np.isfinite(float(loss0)):
+            fail(f"gnn {arch}: the first batch's loss {float(loss0)} or a "
+                 f"gradient is not finite")
+        del grads0
+
+        step = gnn_step(cfg, lr=1e-3)
+        state = {"params": params,
+                 "opt": adamw_init(dict(params.named_parameters()))}
+        metrics = []
+
+        def one():
+            state["params"], state["opt"], m = step(state["params"],
+                                                    state["opt"], g, targets)
+            metrics.append(m)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(1 + GNN_STEPS):
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated()
+        wall, busy, top, _ = busy_share(one)  # two more steps
+        losses = [float(m["loss"]) for m in metrics]
+        norms = [float(m["grad_norm"]) for m in metrics]
+        if not all(np.isfinite(losses)):
+            fail(f"gnn {arch}: a non-finite loss: {losses}")
+        if arch == "gatedgcn" and not losses[-1] < losses[0]:
+            fail(f"gnn gatedgcn: the loss did not fall over {len(losses)} "
+                 f"steps on one batch: {losses}")
+        med = float(np.median(times[1:]))
+        records[arch] = dict(step_ms=med, warmup_ms=times[0], fwd_ms=fwd_ms,
+                             peak_gib=peak / 2**30,
+                             step_gib=(peak - base) / 2**30,
+                             busy=busy / wall, top=top, losses=losses,
+                             f64_err=f64_err, rot_err=rot_err,
+                             n_params=n_params, norms=norms, norm64=norm64)
+        say(f"[gnn] {arch} ({cfg.n_layers} L, d {cfg.d_hidden}, {n_params} "
+            f"parameters) at minibatch_lg N={n} E={e} d_feat "
+            f"{cfg.d_in}: forward {fwd_ms:.1f} ms (float64 rel err "
+            f"{f64_err:.3g}" + (f", rotation + shift {rot_err:.3g}"
+                                if rot_err is not None else "") +
+            f"); train step median {med:.1f} ms over {GNN_STEPS} (min "
+            f"{min(times[1:]):.1f}, max {max(times[1:]):.1f}) after a "
+            f"{times[0]:.1f} ms warm-up; peak {peak / 2**30:.2f} GiB allocated, "
+            f"{(peak - base) / 2**30:.2f} GiB above the parameters, optimizer "
+            f"state and inputs; device busy {busy:.1f} of {wall:.1f} ms "
+            f"({100 * busy / wall:.1f}%) a profiled step; top kernels {top}; "
+            f"loss {' -> '.join(f'{x:.4g}' for x in losses)}; the first "
+            f"batch's gradients finite, global norm {norm64:.4g} (float64); "
+            f"the steps' grad_norm (float32, as the reference sums it) "
+            f"{' -> '.join(f'{x:.4g}' for x in norms)}")
+        del step, state, metrics, params, g, targets
+        torch.cuda.empty_cache()
+
+    # ---- MACE's couplings: the port's broadcast sums vs the einsums --- #
+    c = get_arch("mace").config.d_hidden
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    a = [torch.randn((n, c) + (3,) * k, generator=gen, device=dev)
+         for k in range(3)]
+    got, want = G._invariants(*a), mace_invariants_einsum(*a)
+    inv_err = rel_err(got, want)
+    if inv_err > 1e-5:
+        fail(f"gnn: MACE's invariants differ from the einsum forms by {inv_err}")
+    del got, want
+    t_mine = cuda_ms(lambda: G._invariants(*a), iters=5, warmup=1)
+    t_einsum = cuda_ms(lambda: mace_invariants_einsum(*a), iters=5, warmup=1)
+    say(f"[gnn] MACE's invariants at N={n}, C={c} (forward, one call): the "
+        f"port's broadcast sums {t_mine:.2f} ms, the reference's einsums "
+        f"{t_einsum:.2f} ms in this run (rel diff {inv_err:.3g})")
+    del a
+
+    say(f"[gnn] phase {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def gnn_features_phase() -> None:
+    """The CPQx-features driver on the card: a CPQx build (its
+    fingerprint_rows launches) feeding 60 GatedGCN steps; the MSE falls."""
+    from repro_torch.launch import gnn_features
+
+    t0 = time.perf_counter()
+    hist = gnn_features.main(["--steps", "60"])
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        fail(f"gnn_features: the MSE did not fall: {hist[0]} -> {hist[-1]}")
+    say(f"[gnn] launch.gnn_features.main on the card: mse {hist[0]:.4f} -> "
+        f"{hist[-1]:.4f} over {len(hist)} steps in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------- #
@@ -2216,6 +2553,23 @@ def main() -> int:
     path_counts["cluster"] = cluster_phase(
         index, lambda: cindex.build(g, K, caps=caps), per_template, engine,
         kind, ckpt_root / "cluster", who)
+
+    # ---- 16. gnn: train steps of the four architectures --------------- #
+    # The models' kernel set is empty: their substrate op is index_add
+    # and no architecture calls edge_softmax.  A launch there would be a
+    # path this script does not know, so it fails.  The features driver
+    # builds CPQx on the card first: its path has fingerprint_rows.
+    torch.cuda.empty_cache()
+    zero_counts()
+    gnn_phase(dev)
+    path_counts["gnn"] = read_counts("gnn (train steps; kernel set: none)", ())
+    if any(path_counts["gnn"].values()):
+        fail(f"the gnn path launched {path_counts['gnn']}; its kernel set is "
+             "empty")
+    zero_counts()
+    gnn_features_phase()
+    path_counts["gnn_features"] = read_counts(
+        "gnn_features (CPQx build + GatedGCN steps)", ("fingerprint_rows",))
     shutil.rmtree(ckpt_root, ignore_errors=True)
     for name, fn in real.items():
         setattr(ops, name, fn)

@@ -1,1 +1,2 @@
-"""Labeled-graph generators."""
+"""Labeled-graph generators (``graphs``) and the GNN fanout sampler
+(``sampler``)."""

@@ -63,7 +63,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "repro_torch.checkpoint.checkpoint",
               "repro_torch.core.sharded_index", "repro_torch.core.distributed",
               "repro_torch.core.executables", "repro_torch.core.cluster",
-              "repro_torch.launch.workers"):
+              "repro_torch.launch.workers", "repro_torch.configs",
+              "repro_torch.configs.gatedgcn", "repro_torch.configs.egnn",
+              "repro_torch.configs.mace", "repro_torch.configs.graphcast",
+              "repro_torch.data.sampler", "repro_torch.train.optim",
+              "repro_torch.train.schedules", "repro_torch.train.loop",
+              "repro_torch.launch.steps", "repro_torch.launch.gnn_features"):
         assert m in mods
 
 
@@ -235,6 +240,51 @@ def test_cluster_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     assert spawned == []
     with pytest.raises(ValueError, match="mutually exclusive"):
         Engine(index, mesh=object(), cluster=2, device="cpu")
+
+
+def test_gnn_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch,
+                                                       tmp_path):
+    """The GNN's ``init_params``, the parameter conversion, ``gnn_step``,
+    the loop's ``resume`` and the CPQx-features driver raise without a
+    card unless the caller asks for the CPU by name; a step refuses
+    inputs that lie elsewhere than its device."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import gnn_features
+    from repro_torch.launch.steps import gnn_step
+    from repro_torch.models import gnn
+    from repro_torch.train.loop import resume
+    from repro_torch.train.optim import adamw_init
+
+    cfg = get_arch("gatedgcn").smoke
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tree = convert.gnn_params_to_numpy(cfg, params)
+    flat = {"w": torch.zeros(2)}
+    save_checkpoint(str(tmp_path), 1, {"params": flat,
+                                       "opt": adamw_init(flat)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: gnn.init_params(cfg, torch.Generator()),
+                 lambda: convert.gnn_params_from_numpy(cfg, tree),
+                 lambda: gnn_step(cfg),
+                 lambda: resume(str(tmp_path), flat),
+                 lambda: gnn_features.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert convert.gnn_params_from_numpy(cfg, tree, device="cpu")[
+        "embed_n"].device.type == "cpu"
+    assert resume(str(tmp_path), flat, device="cpu")[0] == 1
+    n = 5
+    g = gnn.GraphBatch(torch.zeros(n, cfg.d_in), None,
+                       torch.zeros(3, dtype=torch.int32),
+                       torch.zeros(3, dtype=torch.int32),
+                       torch.ones(n, dtype=torch.bool),
+                       torch.ones(3, dtype=torch.bool), None,
+                       torch.zeros(n, dtype=torch.int32), 1)
+    opt = adamw_init(dict(params.named_parameters()))
+    with pytest.raises(ValueError, match="the step runs on meta"):
+        gnn_step(cfg, device="meta")(params, opt, g, torch.zeros(n, 1))
+    _, _, m = gnn_step(cfg, device="cpu")(params, opt, g, torch.zeros(n, 1))
+    assert bool(torch.isfinite(m["loss"]))
 
 
 def test_engine_never_moves_an_index():
