@@ -1,2 +1,2 @@
-"""Labeled-graph generators (``graphs``) and the GNN fanout sampler
-(``sampler``)."""
+"""Labeled-graph generators (``graphs``), the GNN fanout sampler
+(``sampler``) and BST's behavior-sequence stream (``recsys_stream``)."""

@@ -1,3 +1,4 @@
 """Process entry points of the port: the cluster runtime's worker
-(``launch.workers``), the GNN train step (``launch.steps``) and the CPQx
-features driver (``launch.gnn_features``)."""
+(``launch.workers``), the GNN train step and the serve steps
+(``launch.steps``), the CPQx features driver (``launch.gnn_features``) and
+the LM serving driver (``launch.serve``)."""

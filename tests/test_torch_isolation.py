@@ -68,7 +68,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "repro_torch.configs.mace", "repro_torch.configs.graphcast",
               "repro_torch.data.sampler", "repro_torch.train.optim",
               "repro_torch.train.schedules", "repro_torch.train.loop",
-              "repro_torch.launch.steps", "repro_torch.launch.gnn_features"):
+              "repro_torch.launch.steps", "repro_torch.launch.gnn_features",
+              "repro_torch.models.layers", "repro_torch.models.transformer",
+              "repro_torch.models.recsys", "repro_torch.launch.serve",
+              "repro_torch.data.recsys_stream", "repro_torch.configs.bst",
+              "repro_torch.configs.gemma2_2b", "repro_torch.configs.minicpm_2b",
+              "repro_torch.configs.mistral_nemo_12b",
+              "repro_torch.configs.granite_moe_3b_a800m",
+              "repro_torch.configs.grok_1_314b"):
         assert m in mods
 
 
@@ -285,6 +292,44 @@ def test_gnn_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch,
         gnn_step(cfg, device="meta")(params, opt, g, torch.zeros(n, 1))
     _, _, m = gnn_step(cfg, device="cpu")(params, opt, g, torch.zeros(n, 1))
     assert bool(torch.isfinite(m["loss"]))
+
+
+def test_lm_and_recsys_entry_points_refuse_to_fall_back_to_the_cpu(
+        monkeypatch):
+    """The LM's and BST's ``init_params``, their parameter conversions,
+    the ``Server``, the four serve steps and ``serve.main`` raise without
+    a card unless the caller asks for the CPU by name; a server or a step
+    refuses parameters that lie elsewhere than its device."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import recsys, transformer
+
+    lm, bst = get_arch("gemma2-2b").smoke, get_arch("bst").smoke
+    lm_p = transformer.init_params(lm, torch.Generator(), "cpu")
+    bst_p = recsys.init_params(bst, torch.Generator(), "cpu")
+    lm_tree = convert.lm_params_to_numpy(lm, lm_p)
+    bst_tree = convert.bst_params_to_numpy(bst, bst_p)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: transformer.init_params(lm, torch.Generator()),
+                 lambda: recsys.init_params(bst, torch.Generator()),
+                 lambda: convert.lm_params_from_numpy(lm, lm_tree),
+                 lambda: convert.bst_params_from_numpy(bst, bst_tree),
+                 lambda: serve.Server(lm, lm_p, 2, 16),
+                 lambda: steps.lm_prefill_step(lm),
+                 lambda: steps.lm_decode_step(lm),
+                 lambda: steps.bst_serve_step(bst),
+                 lambda: steps.bst_retrieval_step(bst),
+                 lambda: serve.main(["--requests", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert convert.lm_params_from_numpy(lm, lm_tree, device="cpu")[
+        "embed"].device.type == "cpu"
+    assert serve.Server(lm, lm_p, 2, 16, device="cpu").cache["k"].device.type \
+        == "cpu"
+    with pytest.raises(ValueError, match="the server runs on meta"):
+        serve.Server(lm, lm_p, 2, 16, device="meta")
+    assert serve.main(["--requests", "1", "--max-new", "1", "--device",
+                       "cpu"]).steps == 9
 
 
 def test_engine_never_moves_an_index():
