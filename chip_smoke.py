@@ -32,7 +32,7 @@ Phases, each printed on its own lines:
                  through an eager engine give the same-run yardstick;
 6. iacpqx      — iaCPQx of the same graph over six seeded 2-sequences, and the
                  same queries through it;
-7. maintenance — the lazily maintained host mirror of CPQx: three rounds of
+7. maintenance — the lazily maintained host mirror of CPQx: two rounds of
                  100 mixed updates, each applied, flushed to the card and
                  rebound (the old backend's graphs dropped), its answers
                  checked, beside a full rebuild; then one interest round on an
@@ -88,8 +88,9 @@ Phases, each printed on its own lines:
                  MACE under a rotation and shift, one warm-up and five timed
                  gnn_steps with peak memory and the device-busy share; then
                  the CPQx-features driver (launch.gnn_features) on the card;
-17. lm         — the five LM configs at full width in bfloat16 (grok-1 at 4 of
-                 its 64 layers), parameters drawn on the card: a continuous-
+17. lm         — the five LM configs at full width in bfloat16 at a cut
+                 depth (LM_DEPTH: 8-10 layers, grok-1 4 of its 64),
+                 parameters drawn on the card: a continuous-
                  batching Server (4 slots, 8 requests of 16 prompt and 16 new
                  tokens) held request by request to a one-slot Server, up to
                  a near-tie of a greedy token or an MoE router that parts the
@@ -103,10 +104,27 @@ Phases, each printed on its own lines:
                  rows): serve_p99 (B = 512) card vs CPU, serve_bulk
                  (B = 262 144) timed with its first 4 096 rows held to the
                  CPU, retrieval over 1 M candidates (k = 128) held to the CPU;
+19. lm_train   — LM training at full width in bfloat16, seq_len 4 096,
+                 TRAIN_ACCUM[arch] microbatches of one sequence a step,
+                 per-layer remat: gemma2-2b, minicpm-2b and granite at
+                 their published depth, mistral-nemo at the largest depth
+                 whose reckoned peak fits 60 GiB, grok-1 not (no depth
+                 fits): the first batch three times at lr 1e-5 (its loss
+                 must fall),
+                 three timed steps, tokens/s, 6 N T FLOP/s, peak, busy;
+                 then gemma2-2b and granite in float32 at 2 layers: one
+                 lm_train_step card vs CPU, remat on vs off on the card;
+20. recsys_train — BST train_batch (B = 65 536): one bst_train_step card
+                 vs CPU, then five timed steps;
+21. engine     — the cpqx-engine cells at their published dimensions on
+                 4 in-process shards: build_64m's distributed join of two
+                 64 Mi-row relations held to a numpy sort-merge join,
+                 query_s over a 64 Mi-pair I_c2p held to a numpy isin
+                 filter;
    then the kernels again, on the built index's own arrays and on the inputs
    the paths gave them, with their times.
 
-Each path (phases 4-5, 6, 7, 8's two services, 9 to 18) is driven with the
+Each path (phases 4-5, 6, 7, 8's two services, 9 to 21) is driven with the
 launch counts set to 0 just before it and read just after; a path that never
 launched one of its kernels fails.  The GNN models' kernel set is empty
 (their substrate op is index_add, and no architecture calls edge_softmax):
@@ -114,7 +132,8 @@ phase 16 fails if they launch any; the features driver's CPQx build must
 launch fingerprint_rows.  The LM and recsys paths' kernel sets are empty
 too (attention, MoE dispatch and EmbeddingBag are einsums, a stable sort
 and index_add, as they are XLA ops in the reference): phases 17 and 18
-fail if any of the four kernels launches.  A graph replay adds the launches its
+fail if any of the four kernels launches, and so do phases 19-21 (the
+train steps' autograd; the engine cells' relational.py operators).  A graph replay adds the launches its
 capture recorded, so the counts are the kernels that ran.  The cluster's
 kernels run in its worker processes, which report their launches at each
 CHECKPOINT barrier; phase 15 sums those reports.  The last two lines are
@@ -137,7 +156,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 N_VERTICES = 20_000
 MAINT_VERTICES = 20_000  # the maintenance phase's graph (the host mirror's size)
-MAINT_ROUNDS = 3
+MAINT_ROUNDS = 2  # 3 until PR 19; cut to keep the script to its time limit
 MAINT_OPS = 100
 N_INTERESTS = 6
 K = 2
@@ -271,14 +290,15 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return best / iters / 1e3
 
 
-def busy_share(fn, match: str = ""):
+def busy_share(fn, match: str = "", warm: bool = True):
     """(wall ms, device-busy ms, top-5 kernels by device time, device ms of
     the kernels whose name contains ``match``) of one ``fn`` call, from a
-    profiler trace."""
+    profiler trace; after one call outside it when ``warm``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1448,8 +1468,12 @@ def gnn_features_phase() -> None:
 
 LM_ARCHS = ("gemma2-2b", "minicpm-2b", "mistral-nemo-12b",
             "granite-moe-3b-a800m", "grok-1-314b")
-# grok-1 at its 64 layers is 631 GB of bfloat16: full width, 4 layers
-LM_DEPTH = {"grok-1-314b": 4}
+# full width at a cut depth: grok-1 at its 64 layers is 631 GB of
+# bfloat16; the others are cut (PR 19 served them at full depth, PERF.md
+# §5) so that the script, with the training and engine phases, keeps to
+# its time limit
+LM_DEPTH = {"gemma2-2b": 8, "minicpm-2b": 10, "mistral-nemo-12b": 10,
+            "granite-moe-3b-a800m": 8, "grok-1-314b": 4}
 LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 8, 16, 16, 64
 # card vs CPU in float32 at full width, 2 layers
 LM_CPU_ARCHS = ("gemma2-2b", "minicpm-2b", "granite-moe-3b-a800m")
@@ -1679,8 +1703,8 @@ def lm_hold(batched, alone, reqs, tol, what):
 
 
 def lm_phase(dev) -> dict:
-    """Phase 17: each of the five LM configs at full width (grok-1 at 4
-    layers), bfloat16, parameters drawn on the card from a seeded
+    """Phase 17: each of the five LM configs at full width and the depth
+    ``LM_DEPTH`` gives, bfloat16, parameters drawn on the card from a seeded
     generator: a continuous-batching ``Server`` (4 slots, 8 requests of
     16 prompt tokens and 16 new ones) held request by request to a
     one-slot ``Server``; ``decode_step`` after ``prefill`` held to
@@ -2074,6 +2098,637 @@ def recsys_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# 19. lm_train: LM training at full width
+# ---------------------------------------------------------------------- #
+
+LM_TRAIN_ARCHS = ("gemma2-2b", "minicpm-2b", "granite-moe-3b-a800m",
+                  "mistral-nemo-12b", "grok-1-314b")
+LM_TRAIN_SEQ = 4096  # train_4k's seq_len; its global batch of 256 is cut to
+# TRAIN_ACCUM[arch] microbatches of one sequence
+LM_TRAIN_REFED = 3  # steps on the stream's first batch: its loss must fall
+# ... below its first value, at this learning rate: at the cell's 3e-4 a
+# first AdamW step moves a 5 120- or 14 336-wide layer's outputs by
+# several times themselves, and the re-fed loss rises in the reference too
+# (ROADMAP Queue 3); the timed steps run at the cell's rate
+LM_TRAIN_REFED_LR = 1e-5
+LM_TRAIN_TIMED = 3  # steps on the next batches, the median kept
+# a depth runs if its reckoned peak (lm_train_reckon) fits this: the rest
+# of the card's 80 GB is the allocator's slack and the libraries' workspaces
+LM_TRAIN_BUDGET_GIB = 60
+LM_TRAIN_ACT_GIB = 4  # one layer's recompute at 4 096 tokens, workspaces
+LM_TRAIN_LOGIT_COPIES = 5  # float32 (seq, vocab) tensors of the loss alive
+# card vs CPU and remat on vs off: float32, full width, 2 layers, the
+# chunked attention (q_chunk 128 at seq 256) that train_4k runs
+LM_TRAIN_CHECK = ("gemma2-2b", "granite-moe-3b-a800m")
+LM_TRAIN_CHECK_SHAPE = (2, 256, 2, 128)  # global batch, seq, accum, q_chunk
+LM_TRAIN_TOL = 1e-4  # card vs CPU: loss, grad norm, moments, updated leaves
+LM_REMAT_TOL = 1e-5  # remat on vs off on the card: loss and gradients
+# |g| past which AdamW's first step lr * g / (|g| + eps) is well
+# conditioned (1e3 eps): an updated leaf is held to LM_TRAIN_TOL there and
+# to one step's reach, 2 lr, where a gradient that small may round either way
+STEP_DETERMINED = 1e-5
+# a quantity of a first step off the CPU's beyond its tolerance is held to
+# a float64 step: the card at most this many times as far from it (norm-
+# based) as the CPU's float32 step (hold_first_step)
+REFEREE_FACTOR = 4
+# written before the first chip run of this phase (PERF.md §6, PR 20):
+# (step s, tokens/s, peak GiB, busy %) ranges
+LM_TRAIN_PREDICTED = {
+    "gemma2-2b": ((1.6, 2.5), (6_500, 10_000), (50, 62), (85, 98)),
+    "minicpm-2b": ((3.0, 6.0), (2_700, 5_500), (45, 60), (85, 98)),
+    "granite-moe-3b-a800m": ((3.0, 6.0), (2_700, 5_500), (48, 62), (70, 95)),
+    "mistral-nemo-12b": ((3.0, 5.0), (6_500, 11_000), (50, 62), (85, 98)),
+}
+
+
+def lm_train_reckon(T, cfg, accum: int, seq: int) -> int:
+    """Reckoned peak bytes of one ``lm_train_step`` at ``cfg``: bfloat16
+    parameters (2 N), float32 moments (8 N) and gradient sum (4 N), then
+    the larger of the bfloat16 gradients in flight (2 N) and the loss's
+    float32 (seq, vocab) logit tensors, plus ``LM_TRAIN_ACT_GIB``.  The
+    in-place update holds no second copy of the state."""
+    import torch
+
+    n = sum(p.numel() for p in T.init_params(
+        cfg, torch.Generator(), "meta").parameters())
+    logits = LM_TRAIN_LOGIT_COPIES * 4 * seq * cfg.padded_vocab
+    return (2 + 8 + (4 if accum > 1 else 0)) * n + max(2 * n, logits) \
+        + LM_TRAIN_ACT_GIB * 2**30
+
+
+def lm_train_depth(T, cfg, accum: int) -> int:
+    """The largest depth <= the published one whose reckoned peak fits
+    ``LM_TRAIN_BUDGET_GIB`` (0: none)."""
+    import dataclasses
+
+    for depth in range(cfg.n_layers, 0, -1):
+        c = dataclasses.replace(cfg, n_layers=depth)
+        if lm_train_reckon(T, c, accum, LM_TRAIN_SEQ) <= LM_TRAIN_BUDGET_GIB * 2**30:
+            return depth
+    return 0
+
+
+def rel_errs_on(dev, got, want, where=None) -> tuple:
+    """(max |got - want| / max |want|, ||got - want|| / ||want||) on
+    ``dev`` in float64, over the elements ``where`` when given."""
+    import torch
+
+    got, want = got.detach().to(dev, torch.float64), want.detach().to(
+        dev, torch.float64)
+    diff = (got - want).abs()
+    if where is not None:
+        diff, want = torch.where(where, diff, 0), torch.where(where, want, 0)
+    return (float(diff.max() / want.abs().max().clamp(min=1e-30)),
+            float(diff.norm() / want.norm().clamp(min=1e-30)))
+
+
+def step_errors(dev, got, want, lr) -> dict:
+    """Relative errors (max-based, norm-based) of one first optimizer step
+    ``got`` against ``want``, both ``(named parameters, AdamW state,
+    metrics)``: loss, grad norm, every mu and nu leaf, and every updated
+    leaf where the wanted gradient ``mu / (1 - b1)`` is at least
+    ``STEP_DETERMINED`` (plus ``reach``: the largest difference of any
+    updated element, which a step bounds by ``2 lr``; ``undetermined``:
+    the elements left out)."""
+    import torch
+
+    (named, opt, m), (w_named, w_opt, w_m) = got, want
+    out = {k: rel_errs_on(dev, m[k], w_m[k]) for k in ("loss", "grad_norm")}
+    reach, undetermined = 0.0, 0
+    for name, p in named.items():
+        for f in ("mu", "nu"):
+            out[f"{f} {name}"] = rel_errs_on(dev, getattr(opt, f)[name],
+                                             getattr(w_opt, f)[name])
+        sure = w_opt.mu[name].to(dev).abs() / 0.1 >= STEP_DETERMINED
+        out[f"updated {name}"] = rel_errs_on(dev, p, w_named[name], sure)
+        reach = max(reach, float((p.detach().to(dev, torch.float64) -
+                                  w_named[name].detach().to(
+                                      dev, torch.float64)).abs().max()))
+        undetermined += int((~sure).sum())
+    if reach > 2 * lr:
+        fail(f"an updated element moved {reach} from the reference's; a step "
+             f"reaches {2 * lr}")
+    return {"errors": out, "reach": reach, "undetermined": undetermined}
+
+
+def hold_first_step(what, dev, params, run, lr, tol) -> dict:
+    """One first optimizer step on the card against the same step on the
+    CPU: ``run(params, device) -> (named parameters, AdamW state,
+    metrics)`` from a fresh state.  Every quantity of :func:`step_errors`
+    within ``tol`` (max-based).  A quantity that is not is held to a
+    float64 step on the CPU instead: its norm-based error against it must
+    be within ``tol`` or ``REFEREE_FACTOR`` times the CPU float32 step's.
+    Two float32 steps differ where a leaky-ReLU input or a router score
+    sits within rounding of its kink or tie, each run at other places:
+    one example's unit flipped moves an embedding row only that example
+    feeds by a few per cent, so a leaf of such rows is only that close
+    to float64 in either run.  ``params`` is the CPU's float32 parameter
+    module (updated in place); the record keeps the card's updated
+    module and step (``module``, ``card``)."""
+    import copy
+
+    import torch
+
+    cpu = torch.device("cpu")
+    pristine = copy.deepcopy(params)
+    t0 = time.perf_counter()
+    module = copy.deepcopy(params).to(dev)
+    card = run(module, dev)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = run(params, cpu)
+    t_cpu = time.perf_counter() - t0
+    held = step_errors(dev, card, plain, lr)
+    bad = {k: v[0] for k, v in held["errors"].items() if v[0] > tol}
+    refereed = {}
+    if bad:
+        t0 = time.perf_counter()
+        exact = run(pristine.double(), cpu)
+        t_ref = time.perf_counter() - t0
+        vs_exact = step_errors(dev, card, exact, lr)["errors"]
+        plain_exact = step_errors(dev, plain, exact, lr)["errors"]
+        for k in bad:
+            refereed[k] = (bad[k], vs_exact[k][1], plain_exact[k][1])
+            if vs_exact[k][1] > max(tol, REFEREE_FACTOR * plain_exact[k][1]):
+                fail(f"{what}: {k} card vs CPU {bad[k]} (tolerance {tol}); "
+                     f"against float64 (norm-based) the card "
+                     f"{vs_exact[k][1]}, the CPU's float32 "
+                     f"{plain_exact[k][1]} (at most x{REFEREE_FACTOR})")
+        say(f"{what}: {len(bad)} quantities off the CPU's float32 step by "
+            f"more than {tol}, held to a float64 step ({t_ref:.1f} s) "
+            f"instead (card vs CPU max-based; card vs float64, CPU float32 "
+            f"vs float64 norm-based): "
+            + "; ".join(f"{k} {a:.3g}; {b:.3g} / {c:.3g}"
+                        for k, (a, b, c) in sorted(
+                            refereed.items(), key=lambda kv: -kv[1][0])[:12]))
+    errs = {k: v[0] for k, v in held["errors"].items()}
+    return dict(
+        metric_err=max(errs["loss"], errs["grad_norm"]),
+        moment_err=max(v for k, v in errs.items() if k[:3] in ("mu ", "nu ")),
+        upd_err=max(v for k, v in errs.items() if k.startswith("updated")),
+        held_err=max([v for k, v in errs.items() if k not in refereed],
+                     default=0.0),
+        refereed=len(refereed), undetermined=held["undetermined"],
+        reach=held["reach"], n=sum(p.numel() for p in card[0].values()),
+        loss=float(card[2]["loss"]), card_s=t_card, cpu_s=t_cpu,
+        module=module, card=card)
+
+
+def step_line(r, tol) -> str:
+    """The printed summary of :func:`hold_first_step`'s record ``r``."""
+    return (f"loss and grad norm {r['metric_err']:.3g}, mu and nu "
+            f"{r['moment_err']:.3g}, updated leaves {r['upd_err']:.3g} where "
+            f"|g| >= {STEP_DETERMINED} ({r['undetermined']} of {r['n']} "
+            f"elements below it, within {r['reach']:.3g} <= 2 lr); "
+            f"{r['refereed']} quantities held to float64 instead, all others "
+            f"within {r['held_err']:.3g} (tolerance {tol}); card "
+            f"{r['card_s']:.2f} s, CPU {r['cpu_s']:.1f} s")
+
+
+def lm_train_phase(dev) -> dict:
+    """Phase 19: LM training at full width in bfloat16, seq_len 4 096,
+    ``TRAIN_ACCUM[arch]`` microbatches of one sequence a step, parameters
+    drawn on the card: the stream's first batch three times (its loss must
+    fall), then three timed steps on the next batches.  Then gemma2-2b and
+    granite at full width, 2 layers, float32: one ``lm_train_step`` card
+    vs CPU, and the loss's gradients with remat on vs off on the card.  No
+    hand-written kernel is on this path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.steps import TRAIN_ACCUM, lm_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optim import adamw_init
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    records = {}
+    for arch in LM_TRAIN_ARCHS:
+        base = get_arch(arch).config
+        accum = TRAIN_ACCUM[arch]
+        depth = lm_train_depth(T, base, accum)
+        if depth == 0:
+            one = lm_train_reckon(T, dataclasses.replace(base, n_layers=1),
+                                  accum, LM_TRAIN_SEQ)
+            say(f"[lm_train] {arch}: not run: one of its {base.n_layers} "
+                f"layers reckons {one / 2**30:.1f} GiB, over the "
+                f"{LM_TRAIN_BUDGET_GIB} GiB budget of one card")
+            continue
+        t_arch = time.perf_counter()
+        cfg = dataclasses.replace(base, n_layers=depth)
+        reckoned = lm_train_reckon(T, cfg, accum, LM_TRAIN_SEQ)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        params = T.init_params(cfg, gen, dev)
+        n = sum(p.numel() for p in params.parameters())
+        opt = adamw_init(dict(params.named_parameters()))
+        step = lm_train_step(cfg, accum, device=dev)
+        refed_step = lm_train_step(cfg, accum, lr=LM_TRAIN_REFED_LR, device=dev)
+        stream = TokenStream(cfg.vocab_size, accum, LM_TRAIN_SEQ, seed=SEED)
+
+        def batch(k):
+            return tuple(torch.from_numpy(x).to(dev) for x in stream.batch_at(k))
+
+        def timed(b, step=step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt, *b)
+            loss = float(out[2]["loss"])
+            return out, loss, time.perf_counter() - t0
+
+        refed = []
+        first = batch(0)
+        for _ in range(LM_TRAIN_REFED):
+            (params, opt, m), loss, dt = timed(first, refed_step)
+            refed.append((loss, float(m["grad_norm"]), dt))
+        later = []
+        for k in range(1, 1 + LM_TRAIN_TIMED):
+            (params, opt, m), loss, dt = timed(batch(k))
+            later.append((loss, float(m["grad_norm"]), dt))
+        peak = torch.cuda.max_memory_allocated()
+        last = batch(1 + LM_TRAIN_TIMED)
+        wall, busy, top, _ = busy_share(lambda: step(params, opt, *last),
+                                        warm=False)
+        losses = [x[0] for x in refed + later]
+        if not all(np.isfinite(losses)) or not min(
+                x[0] for x in refed[1:]) < refed[0][0]:
+            fail(f"lm_train {arch}: losses {losses}: not finite, or the "
+                 f"re-fed batch's loss did not fall at lr {LM_TRAIN_REFED_LR}")
+        if refed[-1][0] > min(x[0] for x in refed):
+            say(f"[lm_train] {arch}: the re-fed batch's loss rose again after "
+                "it fell (ROADMAP Queue 3)")
+        step_s = float(np.median([x[2] for x in later]))
+        tokens = accum * LM_TRAIN_SEQ
+        tok_s = tokens / step_s
+        tflops = 6 * n * tokens / step_s / 1e12
+        pred = LM_TRAIN_PREDICTED.get(arch)
+        records[arch] = dict(depth=depth, n=n, accum=accum, step_s=step_s,
+                             tok_s=tok_s, tflops=tflops, peak_gib=peak / 2**30,
+                             reckoned_gib=reckoned / 2**30, busy=busy / wall,
+                             top=top, losses=losses)
+        say(f"[lm_train] {arch} ({depth} of {base.n_layers} layers, N = {n} "
+            f"parameters with the embeddings, bfloat16, remat {cfg.remat}, "
+            f"q_chunk {cfg.q_chunk}): {accum} x {LM_TRAIN_SEQ} tokens a step; "
+            f"re-fed batch losses at lr {LM_TRAIN_REFED_LR} "
+            f"{[round(x[0], 4) for x in refed]} (grad norms "
+            f"{[round(x[1], 3) for x in refed]}), next batches at lr 3e-4 "
+            f"{[round(x[0], 4) for x in later]}; step {step_s:.3f} s (median "
+            f"of {LM_TRAIN_TIMED}: {[round(x[2], 3) for x in later]}; the "
+            f"first {refed[0][2]:.3f} s), {tok_s:.0f} tokens/s, "
+            f"{tflops:.1f} TFLOP/s of 6 N T; peak {peak / 2**30:.2f} GiB "
+            f"(reckoned {reckoned / 2**30:.2f}); busy {busy:.1f} of "
+            f"{wall:.1f} ms ({100 * busy / wall:.1f}%); top kernels {top}"
+            + (f"; predicted step {pred[0]} s, {pred[1]} tokens/s, peak "
+               f"{pred[2]} GiB, busy {pred[3]} %" if pred else "")
+            + f"; {time.perf_counter() - t_arch:.1f} s")
+        del params, opt, step, first, last
+        torch.cuda.empty_cache()
+
+    # ---- float32 at 2 layers: card vs CPU, remat on vs off ------------ #
+    gb, seq, acc, qc = LM_TRAIN_CHECK_SHAPE
+    for arch in LM_TRAIN_CHECK:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(arch).config, n_layers=2,
+                                  param_dtype="float32", q_chunk=qc)
+        on_cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED), cpu)
+        toks, labels = TokenStream(cfg.vocab_size, gb, seq, seed=SEED).batch_at(0)
+
+        def run(p, d):
+            named = dict(p.named_parameters())
+            _, opt, m = lm_train_step(cfg, acc, device=d)(
+                p, adamw_init(named), torch.from_numpy(toks).to(d),
+                torch.from_numpy(labels).to(d))
+            return named, opt, m
+
+        r = hold_first_step(f"[lm_train] {arch} float32", dev, on_cpu, run,
+                            3e-4, LM_TRAIN_TOL)
+        on_dev, (named, _, _) = r.pop("module"), r.pop("card")
+        del on_cpu
+        grads = {}
+        for remat in (True, False):
+            rcfg = dataclasses.replace(cfg, remat=remat)
+            loss, _ = T.train_loss(rcfg, on_dev, torch.from_numpy(toks).to(dev),
+                                   torch.from_numpy(labels).to(dev))
+            grads[remat] = (loss.detach(), torch.autograd.grad(
+                loss, list(named.values()), allow_unused=True,
+                materialize_grads=True))
+        remat_err = max([rel_err(grads[True][0], grads[False][0])] +
+                        [rel_errs_on(dev, a, b)[0] for a, b in zip(
+                            grads[True][1], grads[False][1])])
+        bitwise = torch.equal(grads[True][0], grads[False][0]) and all(
+            torch.equal(a, b) for a, b in zip(grads[True][1], grads[False][1]))
+        if remat_err > LM_REMAT_TOL:
+            fail(f"lm_train {arch} remat on vs off: {remat_err} (tolerance "
+                 f"{LM_REMAT_TOL})")
+        records[f"{arch}/check"] = dict(r, remat_err=remat_err,
+                                        bitwise=bitwise)
+        say(f"[lm_train] {arch} float32, 2 layers, full width, {gb} x {seq} "
+            f"tokens, accum {acc}, q_chunk {qc}: one lm_train_step card vs "
+            f"CPU: {step_line(r, LM_TRAIN_TOL)}; remat on vs off on the "
+            f"card: loss and gradients {remat_err:.3g} (tolerance "
+            f"{LM_REMAT_TOL}), bit for bit: {bitwise}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del on_dev, named, grads
+        torch.cuda.empty_cache()
+    say(f"[lm_train] phase {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+# ---------------------------------------------------------------------- #
+# 20. recsys_train: BST train_batch at its published config
+# ---------------------------------------------------------------------- #
+
+RS_TRAIN_TOL = 1e-4  # card vs CPU, float32
+RS_TRAIN_TIMED = 5  # steps after one warm-up, the median kept
+RS_TRAIN_LR = 1e-3  # bst_train_step's, bst_cell's
+# written before the first chip run (PERF.md §6, PR 20): step ms,
+# examples/s, peak GiB, busy %
+RS_TRAIN_PREDICTED = ((40, 90), (700_000, 1_600_000), (3, 6), (70, 95))
+
+
+def recsys_train_phase(dev) -> dict:
+    """Phase 20: BST ``train_batch`` (B = 65 536) at its published config:
+    one ``bst_train_step`` card vs CPU (loss, grad norm, moments and
+    every updated leaf), then one warm-up and five timed steps on the
+    stream's next batches.  No hand-written kernel is on this path."""
+    import torch
+    from repro_torch.configs import recsys_shapes
+    from repro_torch.data.recsys_stream import batch_at
+    from repro_torch.launch.steps import bst_train_step
+    from repro_torch.models import recsys as RS
+    from repro_torch.train.optim import adamw_init
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    cfg = rs_config()
+    b = {s.name: s for s in recsys_shapes()}["train_batch"].dims["batch"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    on_cpu = RS.init_params(cfg, torch.Generator().manual_seed(SEED), cpu)
+    arrs = batch_at(cfg, b, 0, seed=SEED)
+
+    def run(p, d):
+        named = dict(p.named_parameters())
+        _, opt, m = bst_train_step(cfg, device=d)(p, adamw_init(named),
+                                                  rs_batch(RS, arrs, d))
+        return named, opt, m
+
+    r = hold_first_step("[recsys_train] BST train_batch", dev, on_cpu, run,
+                        RS_TRAIN_LR, RS_TRAIN_TOL)
+    on_dev, (_, opt, _) = r.pop("module"), r.pop("card")
+    say(f"[recsys_train] BST train_batch B={b} ({r['n']} float32 parameters): "
+        f"loss {r['loss']:.5f}; one bst_train_step card vs CPU: "
+        f"{step_line(r, RS_TRAIN_TOL)}")
+    del on_cpu
+
+    step = bst_train_step(cfg, device=dev)
+    batches = [rs_batch(RS, batch_at(cfg, b, k, seed=SEED), dev)
+               for k in range(1, 3 + RS_TRAIN_TIMED)]
+    times, losses = [], []
+    for k in range(1 + RS_TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_dev, opt, m = step(on_dev, opt, batches[k])
+        losses.append(float(m["loss"]))
+        times.append(1e3 * (time.perf_counter() - t0))
+    wall, busy, top, _ = busy_share(lambda: step(on_dev, opt, batches[-1]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"recsys_train: losses {losses}")
+    step_ms = float(np.median(times[1:]))
+    say(f"[recsys_train] {RS_TRAIN_TIMED} timed steps after one warm-up: "
+        f"losses {[round(x, 5) for x in losses]}; step {step_ms:.2f} ms "
+        f"(median; {[round(x, 2) for x in times]}), {b / step_ms * 1e3:.0f} "
+        f"examples/s; peak {peak / 2**30:.2f} GiB; busy {busy:.2f} of "
+        f"{wall:.2f} ms ({100 * busy / wall:.1f}%); top kernels {top}; "
+        f"predicted step {RS_TRAIN_PREDICTED[0]} ms, {RS_TRAIN_PREDICTED[1]} "
+        f"examples/s, peak {RS_TRAIN_PREDICTED[2]} GiB, busy "
+        f"{RS_TRAIN_PREDICTED[3]} %")
+    del on_dev, opt, batches
+    torch.cuda.empty_cache()
+    say(f"[recsys_train] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(r, step_ms=step_ms, peak_gib=peak / 2**30, busy=busy / wall,
+                top=top)
+
+
+# ---------------------------------------------------------------------- #
+# 21. engine: the cpqx-engine cells at their published dimensions
+# ---------------------------------------------------------------------- #
+
+ENGINE_SHARDS = 4  # in-process shards (the production mesh: 256 chips)
+ENGINE_SLACK = 16  # a shard's block holds per + per / ENGINE_SLACK rows
+ENGINE_TIMED = 5  # step runs, the median kept
+# written before the first chip run (PERF.md §6, PR 20): step ms, peak GiB
+ENGINE_PREDICTED = {"build_64m": ((1_000, 4_000), (20, 35)),
+                    "query_s": ((50, 150), (2, 6))}
+
+
+def engine_join_numpy(a: np.ndarray, b: np.ndarray) -> tuple:
+    """(v, u, x, y) columns of a (v, m, x) ⋈ b (m, u, y): a host
+    sort-merge join (both sides sorted on m, one merge by searchsorted)."""
+    a = a[np.argsort(a[:, 1])]
+    b = b[np.argsort(b[:, 0])]
+    lo = np.searchsorted(b[:, 0], a[:, 1], "left")
+    cnt = np.searchsorted(b[:, 0], a[:, 1], "right") - lo
+    ai = np.repeat(np.arange(len(a)), cnt)
+    starts = np.cumsum(cnt) - cnt
+    bj = lo[ai] + (np.arange(len(ai)) - starts[ai])
+    return a[ai, 0], b[bj, 1], a[ai, 2], b[bj, 2]
+
+
+def engine_canonical(v, u, x, y, id_bits: int, seq_bits: int) -> tuple:
+    """Rows (v, u, x, y) as two sorted int64 keys, ``(v, u)`` and ``(x,
+    y)``, duplicates dropped: equal outputs for equal row sets."""
+    k1 = (v.astype(np.int64) << id_bits) | u
+    k2 = (x.astype(np.int64) << seq_bits) | y
+    order = np.argsort(k1)
+    k1, k2 = k1[order], k2[order]
+    rank = np.zeros(len(k1), np.int64)
+    np.cumsum(k1[1:] != k1[:-1], out=rank[1:])
+    order = np.argsort((rank << (2 * seq_bits)) | k2)
+    k1, k2 = k1[order], k2[order]
+    keep = np.ones(len(k1), bool)
+    keep[1:] = (k1[1:] != k1[:-1]) | (k2[1:] != k2[:-1])
+    return k1[keep], k2[keep]
+
+
+def engine_phase(dev) -> dict:
+    """Phase 21: ``engine_cell``'s two steps at ``cpqx-engine``'s published
+    dimensions on ``make_mesh(4)``.  ``build_64m``: two seeded arity-3
+    relations of 64 Mi rows, ``v`` and ``m`` (and ``u``) uniform over 64
+    Mi ids and the third column over ``n_seqs``, laid out by
+    ``shard_relation`` by a key other than the join's (a by v, b by u: a
+    relation laid out by m keeps its whole block on its shard, where the
+    cell's bucket cap of ``per`` rows overflows on every shard holding more
+    than ``per``); the join's rows of all shards equal a host numpy
+    sort-merge join as sets, with no overflow flag.  ``query_s``: a 64
+    Mi-pair ``I_c2p`` over 1 Mi classes sharded by source vertex, and two
+    sorted lists of 65 536 lookup classes; each shard's result equals its
+    slice filtered by numpy ``isin``, in order.  No hand-written kernel is
+    on this path (the join is ``relational.expansion_join``'s torch ops,
+    as it is jnp ops in the reference)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import distributed as D
+    from repro_torch.core import relational as R
+    from repro_torch.launch.steps import engine_build_step, engine_query_step
+
+    t_phase = time.perf_counter()
+    spec = get_arch("cpqx-engine")
+    build, query = spec.shape("build_64m"), spec.shape("query_s")
+    mesh = D.make_mesh(ENGINE_SHARDS, device=dev)
+    s = ENGINE_SHARDS
+    n = build.dims["n_pairs"]
+    n_seqs = build.dims["n_seqs"]
+    n_cls = query.dims["n_classes"]
+    per = n // s
+    cap = per + per // ENGINE_SLACK
+    id_bits, seq_bits = (n - 1).bit_length(), (n_seqs - 1).bit_length()
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    a = np.stack([rng.integers(0, n, n, dtype=np.int32),
+                  rng.integers(0, n, n, dtype=np.int32),
+                  rng.integers(0, n_seqs, n, dtype=np.int32)], 1)
+    b = np.stack([rng.integers(0, n, n, dtype=np.int32),
+                  rng.integers(0, n, n, dtype=np.int32),
+                  rng.integers(0, n_seqs, n, dtype=np.int32)], 1)
+    c2p = np.stack([rng.integers(0, n_cls, n, dtype=np.int32),
+                    rng.integers(0, n, n, dtype=np.int32),
+                    rng.integers(0, n, n, dtype=np.int32)], 1)
+    lc = query.dims["lookup_classes"]
+    ca, cb = (np.sort(rng.choice(n_cls, lc, replace=False)).astype(np.int32)
+              for _ in range(2))
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the host reference join runs beside the layout and the device join
+    # (numpy's sorts release the GIL)
+    ex = ThreadPoolExecutor(4)
+    t_want = []
+    want_job = ex.submit(lambda: (engine_canonical(
+        *engine_join_numpy(a, b), id_bits, seq_bits),
+        t_want.append(time.perf_counter() - t0))[0])
+    laid = list(ex.map(
+        lambda job: D.shard_relation(job[0], s, cap, key_col=job[1],
+                                     grow=False),
+        ((a, 0), (b, 1), (c2p, 1))))
+    t_shard = time.perf_counter() - t0
+    (ablk, an), (bblk, bn), (cblk, cn) = laid
+    del laid
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def cols(blk):
+        return [torch.from_numpy(np.ascontiguousarray(blk[:, :, j])).to(dev)
+                for j in range(3)]
+
+    bucket = max(per // s * 4, 1024)
+    reckon = 4 * (6 * s * cap + 2 * 3 * s * s * bucket + 4 * s * 4 * per)
+    say(f"[engine] cpqx-engine on make_mesh({s}) (in-process shards; the "
+        f"production mesh has 256 chips): two relations of {n} rows "
+        f"(v, m, u uniform over {n} ids, the third column over {n_seqs}) and "
+        f"an I_c2p of {n} pairs over {n_cls} classes drawn in {t_gen:.1f} s, "
+        f"laid out by shard_relation ({s} x {cap} rows a relation; a by v, b "
+        f"by u, I_c2p by v) in {t_shard:.1f} s; reckoned: inputs, exchange buckets of "
+        f"{bucket} rows a side and {4 * per} output rows a shard "
+        f"{reckon / 2**30:.2f} GiB before the sorts' keys and permutations")
+    args = cols(ablk) + [torch.from_numpy(an).to(dev)] + cols(bblk) + \
+        [torch.from_numpy(bn).to(dev)]
+    del ablk, bblk
+    step = engine_build_step(spec, build, mesh)
+
+    def run_build():
+        out = step(*args)
+        torch.cuda.synchronize()
+        return out
+
+    times = []
+    for _ in range(ENGINE_TIMED):
+        t0 = time.perf_counter()
+        out_cols, out_n, ovf = run_build()
+        times.append(1e3 * (time.perf_counter() - t0))
+    build_peak = torch.cuda.max_memory_allocated()
+    counts = out_n.cpu().numpy()
+    if bool(ovf.any()):
+        fail(f"engine build_64m: overflow flags {ovf.cpu().tolist()}")
+    t0 = time.perf_counter()
+    got = [np.concatenate([c[i, :counts[i]].cpu().numpy() for i in range(s)])
+           for c in out_cols]
+    del out_cols, out_n, ovf, args
+    torch.cuda.empty_cache()
+    mine = engine_canonical(*got, id_bits, seq_bits)
+    want = want_job.result()
+    ex.shutdown()
+    t_check = time.perf_counter() - t0
+    if len(mine[0]) != len(want[0]) or not all(
+            np.array_equal(x, y) for x, y in zip(mine, want)):
+        fail(f"engine build_64m: the join's {len(mine[0])} rows differ from "
+             f"the numpy sort-merge join's {len(want[0])}")
+    build_ms = float(np.median(times))
+    pred = ENGINE_PREDICTED["build_64m"]
+    say(f"[engine] build_64m: distributed level join of {n} x {n} rows -> "
+        f"{int(counts.sum())} rows ({counts.tolist()} a shard; caps: "
+        f"{4 * per} a shard), no overflow; equal to the numpy sort-merge "
+        f"join as sets (its join and sort {t_want[0]:.1f} s beside the "
+        f"layout and the card, then {t_check:.1f} s); step {build_ms:.1f} ms "
+        f"(median of {ENGINE_TIMED}: {[round(x, 1) for x in times]}), "
+        f"{2 * n / build_ms * 1e3 / 1e6:.1f} M input rows/s; peak "
+        f"{build_peak / 2**30:.2f} GiB; predicted step {pred[0]} ms, peak "
+        f"{pred[1]} GiB")
+    del a, b, got, mine, want
+
+    torch.cuda.reset_peak_memory_stats()
+    qargs = [torch.from_numpy(ca).to(dev), torch.from_numpy(cb).to(dev)] + \
+        cols(cblk) + [torch.from_numpy(cn).to(dev)]
+    qstep = engine_query_step(spec, query, mesh)
+    times = []
+    for _ in range(ENGINE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (pv, pu), pn = qstep(*qargs)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    query_peak = torch.cuda.max_memory_allocated()
+    wall, busy, top, _ = busy_share(lambda: qstep(*qargs))
+    t0 = time.perf_counter()
+    both = np.intersect1d(ca, cb)
+    pn = pn.cpu().numpy()
+    for i in range(s):
+        rows = cblk[i, :cn[i]]
+        keep = rows[np.isin(rows[:, 0], both)]
+        if pn[i] != len(keep) or not np.array_equal(
+                pv[i, :pn[i]].cpu().numpy(), keep[:, 1]) or not np.array_equal(
+                pu[i, :pn[i]].cpu().numpy(), keep[:, 2]) or bool(
+                (pv[i, pn[i]:] != R.SENTINEL).any()):
+            fail(f"engine query_s: shard {i}'s {pn[i]} rows differ from its "
+                 f"slice of I_c2p filtered by isin ({len(keep)} rows)")
+    t_check = time.perf_counter() - t0
+    query_ms = float(np.median(times))
+    pred = ENGINE_PREDICTED["query_s"]
+    say(f"[engine] query_s: {len(ca)} and {len(cb)} lookup classes "
+        f"({len(both)} in both) over an I_c2p of {n} pairs ({cn.tolist()} a "
+        f"shard) -> {int(pn.sum())} pairs; each shard equal to its slice "
+        f"filtered by isin, in order (host check {t_check:.1f} s); step "
+        f"{query_ms:.2f} ms (median of {ENGINE_TIMED}: "
+        f"{[round(x, 2) for x in times]}); busy {busy:.2f} of {wall:.2f} ms "
+        f"({100 * busy / wall:.1f}%); top kernels {top}; peak "
+        f"{query_peak / 2**30:.2f} GiB; predicted step {pred[0]} ms, peak "
+        f"{pred[1]} GiB")
+    del qargs, pv, pu
+    torch.cuda.empty_cache()
+    say(f"[engine] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(build_ms=build_ms, build_rows=int(counts.sum()),
+                build_peak_gib=build_peak / 2**30, query_ms=query_ms,
+                query_rows=int(pn.sum()), query_peak_gib=query_peak / 2**30)
+
+
+# ---------------------------------------------------------------------- #
 # main
 # ---------------------------------------------------------------------- #
 
@@ -2246,7 +2901,8 @@ def main() -> int:
 
     def read_counts(path, needed):
         counts = {name: mod.launches for name, mod in counters.items()}
-        say(f"[{path}] kernel launches {counts}")
+        say(f"[{path}] kernel launches {counts} "
+            f"({time.perf_counter() - t_start:.1f} s into the run)")
         for name in needed:
             if counts[name] == 0:
                 fail(f"the {path} path never launched {name}")
@@ -3239,6 +3895,22 @@ def main() -> int:
         zero_counts()
         phase(dev)
         path_counts[name] = read_counts(f"{name} (serving; kernel set: none)", ())
+        if any(path_counts[name].values()):
+            fail(f"the {name} path launched {path_counts[name]}; its kernel "
+                 "set is empty")
+
+    # ---- 19-21. lm and recsys training, the engine cells --------------- #
+    # Their kernel sets are empty too: the train steps are the models'
+    # library ops and autograd, the engine cells relational.py's torch ops
+    # (expansion_join, sorts, searchsorted), as they are XLA ops in the
+    # reference.
+    for name, phase in (("lm_train", lm_train_phase),
+                        ("recsys_train", recsys_train_phase),
+                        ("engine", engine_phase)):
+        torch.cuda.empty_cache()
+        zero_counts()
+        phase(dev)
+        path_counts[name] = read_counts(f"{name} (kernel set: none)", ())
         if any(path_counts[name].values()):
             fail(f"the {name} path launched {path_counts[name]}; its kernel "
                  "set is empty")

@@ -2,9 +2,8 @@
 its published config, a reduced smoke config and its input-shape set —
 the reference's ``repro/configs``.
 
-``get_arch`` resolves the five LM ids, the four GNN ids and ``bst``; the
-reference's ``cpqx-engine`` id (its dry-run cells) waits for ROADMAP
-Queue 1 item 14(c) and raises.
+``get_arch`` resolves every id of the reference: the five LM ids, the
+four GNN ids, ``bst`` and ``cpqx-engine`` (the engine's cells).
 """
 
 from __future__ import annotations
@@ -31,8 +30,6 @@ ARCH_IDS = [
     "cpqx-engine",
 ]
 GNN_ARCH_IDS = ["mace", "egnn", "gatedgcn", "graphcast"]
-# the reference's ids not ported yet
-PENDING_ARCH_IDS = ["cpqx-engine"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +59,6 @@ class ArchSpec:
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in PENDING_ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet: it waits for ROADMAP Queue 1 "
-            "item 14(c)")
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r}")
     mod = importlib.import_module(
@@ -74,7 +67,7 @@ def get_arch(arch_id: str) -> ArchSpec:
 
 
 def all_archs() -> list:
-    return [get_arch(a) for a in ARCH_IDS if a not in PENDING_ARCH_IDS]
+    return [get_arch(a) for a in ARCH_IDS]
 
 
 # ---------------------------------------------------------------------- #

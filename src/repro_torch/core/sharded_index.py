@@ -105,24 +105,46 @@ def hash_buckets(rows: np.ndarray, key_cols: Sequence[int],
     return (h % np.uint32(n_shards)).astype(np.int64)
 
 
+def _lex_order(bucket: np.ndarray, cols: Sequence[np.ndarray]) -> np.ndarray:
+    """A permutation sorting rows by ``bucket`` (in [0, 2^31)), then by
+    the int32 ``cols`` in order: ``np.lexsort``'s order up to rows equal
+    in every key.  Each pass sorts ``rank << 32 | col`` (``rank`` the
+    dense rank of the keys before it, the bucket at first) with one
+    unstable int64 argsort: rows a pass leaves tied are ordered by the
+    next column, and rows tied after the last are equal, so stability is
+    not needed (``np.lexsort`` makes one stable pass a key, and the
+    engine cells lay out relations of 64 Mi rows)."""
+    n = len(bucket)
+    order = np.arange(n)
+    rank = bucket.astype(np.int64)
+    for k in cols:
+        packed = (rank << 32) | (k[order].astype(np.int64) + (1 << 31))
+        step = np.argsort(packed)
+        order, packed = order[step], packed[step]
+        rank = np.zeros(n, np.int64)
+        if n:
+            np.cumsum(packed[1:] != packed[:-1], out=rank[1:])
+    return order
+
+
 def partition_rows(rows: np.ndarray, n_shards: int, cap: int,
                    key_cols: Sequence[int] = (0,), grow: bool = True):
     """Hash-partition host rows into ``(n_shards, cap, arity)`` blocks,
     each shard's rows sorted lexicographically and SENTINEL-padded.
 
-    Vectorized: one lexsort, searchsorted bucket boundaries and one flat
-    scatter.  A shard overflowing ``cap`` doubles the capacity and
-    retries (the host twin of the device's flagged grow-and-retry) unless
-    ``grow=False``, which raises instead.
+    Vectorized: one lexicographic sort (:func:`_lex_order`),
+    searchsorted bucket boundaries and one flat scatter.  A shard
+    overflowing ``cap`` doubles the capacity and retries (the host twin of
+    the device's flagged grow-and-retry) unless ``grow=False``, which
+    raises instead.
 
     Returns ``(blocks, counts, cap)`` — ``cap`` is the possibly-grown
     per-shard capacity."""
     rows = np.asarray(rows, np.int32).reshape(-1, rows.shape[-1])
     n, arity = rows.shape
     bucket = hash_buckets(rows, tuple(key_cols), n_shards)
-    # one lexsort: primary key bucket, then the row columns in order
-    order = np.lexsort(
-        tuple(rows[:, j] for j in range(arity - 1, -1, -1)) + (bucket,))
+    # primary key bucket, then the row columns in order
+    order = _lex_order(bucket, [rows[:, j] for j in range(arity)])
     srows, sb = rows[order], bucket[order]
     offs = np.searchsorted(sb, np.arange(n_shards), side="left")
     ends = np.searchsorted(sb, np.arange(n_shards), side="right")

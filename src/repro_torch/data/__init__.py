@@ -1,2 +1,3 @@
 """Labeled-graph generators (``graphs``), the GNN fanout sampler
-(``sampler``) and BST's behavior-sequence stream (``recsys_stream``)."""
+(``sampler``), BST's behavior-sequence stream (``recsys_stream``) and the
+LM token stream (``tokens``)."""

@@ -18,7 +18,10 @@ The KV cache keeps the reference's layout, ``{"k", "v"}`` of shape
 (n_layers, B, max_len, KV, head_dim); ``prefill`` and ``decode_step``
 write into the cache they are given and return it (the reference's cells
 donate it).  They run under ``torch.no_grad``; ``forward`` and
-``train_loss`` leave autograd to the caller.
+``train_loss`` leave autograd to the caller; with ``cfg.remat`` set and
+autograd recording, ``forward`` keeps one activation a layer and
+recomputes the rest in the backward pass (the reference's
+``jax.checkpoint`` of its scan body).
 
 Entry points:
   init_params(cfg, generator, device)       parameter module
@@ -35,6 +38,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .gnn import Params
@@ -74,9 +78,11 @@ class LMConfig:
     vocab_pad_to: int = 256
     # the reference's memory and sharding knobs, kept so that a config is
     # the reference's field for field: ``q_chunk`` selects the chunked
-    # attention for sequences >= 2 * q_chunk (0 disables); ``remat`` and
-    # the axis hints place work on a TPU mesh and change no value, so the
-    # port's eager one-card path does not read them
+    # attention for sequences >= 2 * q_chunk (0 disables); ``remat``
+    # recomputes each layer in the backward pass instead of keeping its
+    # activations (``forward`` reads it while autograd records); the axis
+    # hints place work on a TPU mesh and change no value, so the port's
+    # one-card path does not read them
     remat: bool = False
     q_chunk: int = 0
     attn_batch_axes: tuple = ()
@@ -307,10 +313,19 @@ def forward(cfg: LMConfig, params, tokens: torch.Tensor,
              if chunked else _layer_masks(cfg, s, s, device=dev))
     x = _embed(cfg, params, tokens)
     aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def body(x, lp, kind):
+        x, _, aux = _block(cfg, x, lp, kind, masks, cos, sin, positions)
+        return x, aux["moe_aux_loss"]
+
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, lp in enumerate(params["layers"]):
-        x, _, aux = _block(cfg, x, lp, _kind_code(cfg, i), masks, cos, sin,
-                           positions)
-        aux_sum = aux_sum + aux["moe_aux_loss"]
+        if remat:  # per-layer rematerialization: only x is kept a layer
+            x, aux = checkpoint(body, x, lp, _kind_code(cfg, i),
+                                use_reentrant=False)
+        else:
+            x, aux = body(x, lp, _kind_code(cfg, i))
+        aux_sum = aux_sum + aux
     return _unembed(cfg, params, x), aux_sum / cfg.n_layers
 
 

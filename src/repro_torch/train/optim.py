@@ -33,6 +33,9 @@ def tree_map(fn, tree, *rest):
     return tree_unflatten(tree, [fn(*xs) for xs in zip(*cols)])
 
 
+INPLACE_CHUNK = 1 << 24  # elements an in-place update slice holds
+
+
 class AdamWState(NamedTuple):
     step: torch.Tensor  # () int32
     mu: object
@@ -58,9 +61,15 @@ def global_norm(tree) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, lr, *,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, clip_norm: float = 1.0):
+                 weight_decay: float = 0.1, clip_norm: float = 1.0,
+                 inplace: bool = False):
     """Returns ``(new_params, new_state, {"grad_norm", "clip_scale"})``;
-    the new parameters are fresh tensors at the parameters' dtype."""
+    the new parameters are fresh tensors at the parameters' dtype.  With
+    ``inplace`` the new moments and parameters are written into the given
+    tensors (what the reference's cells get by donating them), a slice of
+    at most ``INPLACE_CHUNK`` elements at a time, so the update holds no
+    second copy of the state; the values are the same, and the returned
+    trees are ``params`` and ``state``'s own."""
     gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -76,11 +85,19 @@ def adamw_update(grads, state: AdamWState, params, lr, *,
         delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
 
-    out = [upd(*xs) for xs in zip(tree_leaves(grads), tree_leaves(state.mu),
-                                   tree_leaves(state.nu), tree_leaves(params))]
+    leaves = zip(tree_leaves(grads), tree_leaves(state.mu),
+                 tree_leaves(state.nu), tree_leaves(params))
+    metrics = {"grad_norm": gnorm, "clip_scale": scale}
+    if inplace:  # elementwise: slices of flat views give the same values
+        for g, m, v, p in leaves:
+            g, m, v, p = g.reshape(-1), m.view(-1), v.view(-1), p.view(-1)
+            for i in range(0, p.numel(), INPLACE_CHUNK):
+                sl = slice(i, i + INPLACE_CHUNK)
+                new_p, new_m, new_v = upd(g[sl], m[sl], v[sl], p[sl])
+                m[sl], v[sl], p[sl] = new_m, new_v, new_p
+        return params, AdamWState(step, state.mu, state.nu), metrics
+    out = [upd(*xs) for xs in leaves]
     new_params = tree_unflatten(params, [o[0] for o in out])
     new_mu = tree_unflatten(state.mu, [o[1] for o in out])
     new_nu = tree_unflatten(state.nu, [o[2] for o in out])
-    return new_params, AdamWState(step, new_mu, new_nu), {
-        "grad_norm": gnorm, "clip_scale": scale,
-    }
+    return new_params, AdamWState(step, new_mu, new_nu), metrics

@@ -376,14 +376,11 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_get_arch_names_the_roadmap_item_for_the_other_ids():
-    """Every id of the reference resolves in the port but the engine's
-    dry-run cell, which names its ROADMAP item."""
+    """Every id of the reference resolves in the port, the engine's
+    cells (``cpqx-engine``) included, to a spec of the same family."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     for arch in jconfigs.ARCH_IDS:
-        if arch == "cpqx-engine":
-            with pytest.raises(NotImplementedError, match=r"item 14\(c\)"):
-                tconfigs.get_arch(arch)
-        else:
-            assert tconfigs.get_arch(arch).arch_id == arch
+        assert tconfigs.get_arch(arch).arch_id == arch
+        assert tconfigs.get_arch(arch).family == jconfigs.get_arch(arch).family
     with pytest.raises(KeyError):
         tconfigs.get_arch("no-such-arch")

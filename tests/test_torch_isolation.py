@@ -75,7 +75,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "repro_torch.configs.gemma2_2b", "repro_torch.configs.minicpm_2b",
               "repro_torch.configs.mistral_nemo_12b",
               "repro_torch.configs.granite_moe_3b_a800m",
-              "repro_torch.configs.grok_1_314b"):
+              "repro_torch.configs.grok_1_314b",
+              "repro_torch.data.tokens", "repro_torch.launch.train",
+              "repro_torch.configs.cpqx_engine"):
         assert m in mods
 
 
@@ -297,11 +299,12 @@ def test_gnn_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch,
 def test_lm_and_recsys_entry_points_refuse_to_fall_back_to_the_cpu(
         monkeypatch):
     """The LM's and BST's ``init_params``, their parameter conversions,
-    the ``Server``, the four serve steps and ``serve.main`` raise without
-    a card unless the caller asks for the CPU by name; a server or a step
-    refuses parameters that lie elsewhere than its device."""
+    the ``Server``, the four serve steps, the two train steps,
+    ``serve.main`` and ``train.main`` raise without a card unless the
+    caller asks for the CPU by name; a server or a step refuses
+    parameters that lie elsewhere than its device."""
     from repro_torch.configs import get_arch
-    from repro_torch.launch import serve, steps
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import recsys, transformer
 
     lm, bst = get_arch("gemma2-2b").smoke, get_arch("bst").smoke
@@ -319,7 +322,10 @@ def test_lm_and_recsys_entry_points_refuse_to_fall_back_to_the_cpu(
                  lambda: steps.lm_decode_step(lm),
                  lambda: steps.bst_serve_step(bst),
                  lambda: steps.bst_retrieval_step(bst),
-                 lambda: serve.main(["--requests", "1"])):
+                 lambda: steps.lm_train_step(lm),
+                 lambda: steps.bst_train_step(bst),
+                 lambda: serve.main(["--requests", "1"]),
+                 lambda: train.main(["--steps", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert convert.lm_params_from_numpy(lm, lm_tree, device="cpu")[
@@ -330,6 +336,8 @@ def test_lm_and_recsys_entry_points_refuse_to_fall_back_to_the_cpu(
         serve.Server(lm, lm_p, 2, 16, device="meta")
     assert serve.main(["--requests", "1", "--max-new", "1", "--device",
                        "cpu"]).steps == 9
+    assert len(train.main(["--steps", "1", "--batch", "1", "--seq", "8",
+                           "--device", "cpu"])) == 1
 
 
 def test_engine_never_moves_an_index():
