@@ -89,7 +89,7 @@ Phases, each printed on its own lines:
                  gnn_steps with peak memory and the device-busy share; then
                  the CPQx-features driver (launch.gnn_features) on the card;
 17. lm         — the five LM configs at full width in bfloat16 at a cut
-                 depth (LM_DEPTH: 8-10 layers, grok-1 4 of its 64),
+                 depth (LM_DEPTH: 4 layers, grok-1 4 of its 64),
                  parameters drawn on the card: a continuous-
                  batching Server (4 slots, 8 requests of 16 prompt and 16 new
                  tokens) held request by request to a one-slot Server, up to
@@ -106,10 +106,11 @@ Phases, each printed on its own lines:
                  CPU, retrieval over 1 M candidates (k = 128) held to the CPU;
 19. lm_train   — LM training at full width in bfloat16, seq_len 4 096,
                  TRAIN_ACCUM[arch] microbatches of one sequence a step,
-                 per-layer remat: gemma2-2b, minicpm-2b and granite at
-                 their published depth, mistral-nemo at the largest depth
-                 whose reckoned peak fits 60 GiB, grok-1 not (no depth
-                 fits): the first batch three times at lr 1e-5 (its loss
+                 per-layer remat, each config at the largest depth whose
+                 peak, reckoned by its cell traced on the meta device,
+                 fits 60 GiB (gemma2-2b, minicpm-2b and granite at their
+                 published depth, mistral-nemo at 9 of 40, grok-1 not):
+                 the first batch three times at lr 1e-5 (its loss
                  must fall),
                  three timed steps, tokens/s, 6 N T FLOP/s, peak, busy;
                  then gemma2-2b and granite in float32 at 2 layers: one
@@ -121,10 +122,18 @@ Phases, each printed on its own lines:
                  64 Mi-row relations held to a numpy sort-merge join,
                  query_s over a 64 Mi-pair I_c2p held to a numpy isin
                  filter;
+22. reckon     — every configuration of phases 16-21 at its cut depth,
+                 batch and shards reckoned on the meta device
+                 (launch.steps.build_cell + roofline.collect.analyze_step)
+                 and held to the peak its step reached on the card
+                 (RECKON_BAND), with its useful FLOP fraction; a GNN and an
+                 LM gradient tree quantized by train.compress on the card
+                 and on the CPU, bit for bit, and the wire bytes of
+                 compressed_psum_grads;
    then the kernels again, on the built index's own arrays and on the inputs
    the paths gave them, with their times.
 
-Each path (phases 4-5, 6, 7, 8's two services, 9 to 21) is driven with the
+Each path (phases 4-5, 6, 7, 8's two services, 9 to 22) is driven with the
 launch counts set to 0 just before it and read just after; a path that never
 launched one of its kernels fails.  The GNN models' kernel set is empty
 (their substrate op is index_add, and no architecture calls edge_softmax):
@@ -132,8 +141,9 @@ phase 16 fails if they launch any; the features driver's CPQx build must
 launch fingerprint_rows.  The LM and recsys paths' kernel sets are empty
 too (attention, MoE dispatch and EmbeddingBag are einsums, a stable sort
 and index_add, as they are XLA ops in the reference): phases 17 and 18
-fail if any of the four kernels launches, and so do phases 19-21 (the
-train steps' autograd; the engine cells' relational.py operators).  A graph replay adds the launches its
+fail if any of the four kernels launches, and so do phases 19-22 (the
+train steps' autograd; the engine cells' relational.py operators; the
+meta traces and the compress check's torch ops).  A graph replay adds the launches its
 capture recorded, so the counts are the kernels that ran.  The cluster's
 kernels run in its worker processes, which report their launches at each
 CHECKPOINT barrier; phase 15 sums those reports.  The last two lines are
@@ -1151,6 +1161,7 @@ GNN_GRAPH = (232_965, 492)  # minibatch_lg's CSR graph: nodes, mean degree
 GNN_SEEDS = 1024  # seed nodes of the sampled batch
 GNN_FANOUT = (15, 10)
 GNN_STEPS = 5  # timed train steps, after one warm-up
+GNN_GRAD_TREE = "gatedgcn"  # whose first gradients phase 22 quantizes
 GNN_CHECK_SHAPES = ("molecule", "full_graph_sm")  # card vs CPU
 # rel_err tolerances: card vs CPU (output and loss; each gradient: the
 # float32 sums' order differs, and GraphCast's 16 unnormalised layers
@@ -1333,6 +1344,8 @@ def gnn_phase(dev) -> dict:
     for arch in GNN_ARCHS:
         cfg = dataclasses.replace(get_arch(arch).config,
                                   d_in=shape.dims["d_feat"])
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()  # before the step's inputs
         g = gnn_batch(G, cfg, arrs, dev)
         targets = torch.from_numpy(rng.standard_normal(
             (n, cfg.d_out), dtype=np.float32)).to(dev)
@@ -1371,6 +1384,8 @@ def gnn_phase(dev) -> dict:
         if not grads_finite or not np.isfinite(float(loss0)):
             fail(f"gnn {arch}: the first batch's loss {float(loss0)} or a "
                  f"gradient is not finite")
+        if arch == GNN_GRAD_TREE:  # the compress check's tree (phase 22)
+            records["grads"] = {k: v.cpu() for k, v in grads0.items()}
         del grads0
 
         step = gnn_step(cfg, lr=1e-3)
@@ -1405,6 +1420,7 @@ def gnn_phase(dev) -> dict:
         records[arch] = dict(step_ms=med, warmup_ms=times[0], fwd_ms=fwd_ms,
                              peak_gib=peak / 2**30,
                              step_gib=(peak - base) / 2**30,
+                             cell_gib=(peak - resident) / 2**30, n=n, e=e,
                              busy=busy / wall, top=top, losses=losses,
                              f64_err=f64_err, rot_err=rot_err,
                              n_params=n_params, norms=norms, norm64=norm64)
@@ -1469,11 +1485,11 @@ def gnn_features_phase() -> None:
 LM_ARCHS = ("gemma2-2b", "minicpm-2b", "mistral-nemo-12b",
             "granite-moe-3b-a800m", "grok-1-314b")
 # full width at a cut depth: grok-1 at its 64 layers is 631 GB of
-# bfloat16; the others are cut (PR 19 served them at full depth, PERF.md
-# §5) so that the script, with the training and engine phases, keeps to
-# its time limit
-LM_DEPTH = {"gemma2-2b": 8, "minicpm-2b": 10, "mistral-nemo-12b": 10,
-            "granite-moe-3b-a800m": 8, "grok-1-314b": 4}
+# bfloat16; the others are cut (from full depth, then 8-10 layers; PERF.md
+# §4) so that the script, with the training, engine and reckoning phases,
+# keeps to its time limit
+LM_DEPTH = {"gemma2-2b": 4, "minicpm-2b": 4, "mistral-nemo-12b": 4,
+            "granite-moe-3b-a800m": 4, "grok-1-314b": 4}
 LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 8, 16, 16, 64
 # card vs CPU in float32 at full width, 2 layers
 LM_CPU_ARCHS = ("gemma2-2b", "minicpm-2b", "granite-moe-3b-a800m")
@@ -1814,6 +1830,12 @@ def lm_runs(dev, cpu, S, T, routes, Recording) -> dict:
         del cache
 
         # ---- one decode step at 4 slots: device time, busy share --- #
+        # the step's own peak: its parameters, its server's cache and
+        # what a step makes (phase 22 holds it to the decode cell)
+        phase_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() - tree_bytes(params)
         server = S.Server(cfg, params, LM_SLOTS, LM_MAX_LEN, device=dev)
         step_toks = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (LM_SLOTS, 1))).to(dev)
@@ -1824,8 +1846,9 @@ def lm_runs(dev, cpu, S, T, routes, Recording) -> dict:
 
         dev_ms = device_ms(one_step, iters=5, warmup=1)
         wall, busy, top, _ = busy_share(one_step)
-        peak = torch.cuda.max_memory_allocated()
-        records[arch] = dict(
+        step_peak = torch.cuda.max_memory_allocated()
+        peak = max(phase_peak, step_peak)
+        records[arch] = dict(cell_gib=(step_peak - resident) / 2**30,
             n_layers=cfg.n_layers, n_params=n_params, init_s=t_init,
             serve_err=serve_err, parted=parted, rows_held=(held, total),
             routes_moved=(moved, routed), route_err=route_err,
@@ -2029,7 +2052,11 @@ def recsys_phase(dev) -> dict:
         t_stream = time.perf_counter() - t0
         batch = rs_batch(RS, arrs, dev)
         rows = min(b, RS_BULK_CHECK)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() - tree_bytes((on_dev, batch))
         got = serve[dev](on_dev, batch)
+        cell_peak = torch.cuda.max_memory_allocated()
         want = serve[cpu](on_cpu, rs_batch(RS, arrs, cpu, rows))
         err = rel_err(got[:rows], want)
         if got.shape != (b,) or not bool(torch.isfinite(got).all()) \
@@ -2046,6 +2073,7 @@ def recsys_phase(dev) -> dict:
             lat.append(1e3 * (time.perf_counter() - t0))
         wall, busy, top, _ = busy_share(lambda: serve[dev](on_dev, batch))
         records[name] = dict(b=b, err=err, dev_ms=dev_ms,
+                             cell_gib=(cell_peak - resident) / 2**30,
                              p50_ms=float(np.percentile(lat, 50)),
                              p99_ms=float(np.percentile(lat, 99)),
                              busy=busy / wall, top=top, stream_s=t_stream)
@@ -2112,11 +2140,14 @@ LM_TRAIN_REFED = 3  # steps on the stream's first batch: its loss must fall
 # (ROADMAP Queue 3); the timed steps run at the cell's rate
 LM_TRAIN_REFED_LR = 1e-5
 LM_TRAIN_TIMED = 3  # steps on the next batches, the median kept
-# a depth runs if its reckoned peak (lm_train_reckon) fits this: the rest
-# of the card's 80 GB is the allocator's slack and the libraries' workspaces
+# a depth runs if its reckoned peak (``reckon``: the cell traced on the meta
+# device) fits this: the rest of the card's 80 GB is the allocator's slack
+# and the libraries' workspaces
 LM_TRAIN_BUDGET_GIB = 60
-LM_TRAIN_ACT_GIB = 4  # one layer's recompute at 4 096 tokens, workspaces
-LM_TRAIN_LOGIT_COPIES = 5  # float32 (seq, vocab) tensors of the loss alive
+# the two depths traced for each config (gemma2-2b's layers alternate local
+# and global attention: even depths); the peak is affine in the depth
+LM_TRAIN_PROBE_DEPTHS = (2, 4)
+LM_TRAIN_PROBE_ACCUM = 3  # microbatches of those two traces (at most)
 # card vs CPU and remat on vs off: float32, full width, 2 layers, the
 # chunked attention (q_chunk 128 at seq 256) that train_4k runs
 LM_TRAIN_CHECK = ("gemma2-2b", "granite-moe-3b-a800m")
@@ -2141,31 +2172,40 @@ LM_TRAIN_PREDICTED = {
 }
 
 
-def lm_train_reckon(T, cfg, accum: int, seq: int) -> int:
-    """Reckoned peak bytes of one ``lm_train_step`` at ``cfg``: bfloat16
-    parameters (2 N), float32 moments (8 N) and gradient sum (4 N), then
-    the larger of the bfloat16 gradients in flight (2 N) and the loss's
-    float32 (seq, vocab) logit tensors, plus ``LM_TRAIN_ACT_GIB``.  The
-    in-place update holds no second copy of the state."""
-    import torch
+def lm_train_depth(arch: str) -> tuple:
+    """(depth, record): the largest depth <= the published one whose
+    reckoned peak fits ``LM_TRAIN_BUDGET_GIB`` (0: none), at seq
+    ``LM_TRAIN_SEQ`` and ``TRAIN_ACCUM`` sequences a step.  The cell is
+    traced at the two ``LM_TRAIN_PROBE_DEPTHS`` (at most
+    ``LM_TRAIN_PROBE_ACCUM`` microbatches), the peak extrapolated as
+    affine in the depth, and the chosen depth traced once more at the
+    cell's own accumulation to confirm (one layer less while the
+    confirmation is over).  Without a depth, the record is the one-layer
+    extrapolation's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import TRAIN_ACCUM
 
-    n = sum(p.numel() for p in T.init_params(
-        cfg, torch.Generator(), "meta").parameters())
-    logits = LM_TRAIN_LOGIT_COPIES * 4 * seq * cfg.padded_vocab
-    return (2 + 8 + (4 if accum > 1 else 0)) * n + max(2 * n, logits) \
-        + LM_TRAIN_ACT_GIB * 2**30
-
-
-def lm_train_depth(T, cfg, accum: int) -> int:
-    """The largest depth <= the published one whose reckoned peak fits
-    ``LM_TRAIN_BUDGET_GIB`` (0: none)."""
-    import dataclasses
-
-    for depth in range(cfg.n_layers, 0, -1):
-        c = dataclasses.replace(cfg, n_layers=depth)
-        if lm_train_reckon(T, c, accum, LM_TRAIN_SEQ) <= LM_TRAIN_BUDGET_GIB * 2**30:
-            return depth
-    return 0
+    published = get_arch(arch).config.n_layers
+    cut = dict(global_batch=TRAIN_ACCUM[arch], seq_len=LM_TRAIN_SEQ)
+    # the two probes at LM_TRAIN_PROBE_ACCUM microbatches: from the third
+    # on, a microbatch frees all it made before the next one starts
+    probe = min(TRAIN_ACCUM[arch], LM_TRAIN_PROBE_ACCUM)
+    budget = LM_TRAIN_BUDGET_GIB * 2**30
+    (d1, p1), (d2, p2) = ((d, reckon(arch, "train_4k", n_layers=d,
+                                     global_batch=probe, accum=probe,
+                                     seq_len=LM_TRAIN_SEQ)
+                           ["per_device_hbm_bytes"])
+                          for d in LM_TRAIN_PROBE_DEPTHS)
+    per_layer = (p2 - p1) / (d2 - d1)
+    depth = min(published, int((budget - (p1 - per_layer * d1)) // per_layer))
+    if depth < 1:
+        return 0, {"per_device_hbm_bytes": p1 + per_layer * (1 - d1)}
+    while depth > 0:
+        rec = reckon(arch, "train_4k", n_layers=depth, **cut)
+        if rec["per_device_hbm_bytes"] <= budget:
+            return depth, rec
+        depth -= 1
+    return 0, rec
 
 
 def rel_errs_on(dev, got, want, where=None) -> tuple:
@@ -2308,19 +2348,22 @@ def lm_train_phase(dev) -> dict:
     for arch in LM_TRAIN_ARCHS:
         base = get_arch(arch).config
         accum = TRAIN_ACCUM[arch]
-        depth = lm_train_depth(T, base, accum)
+        t0 = time.perf_counter()
+        depth, rec = lm_train_depth(arch)
+        t_reckon = time.perf_counter() - t0
+        reckoned = rec["per_device_hbm_bytes"]
         if depth == 0:
-            one = lm_train_reckon(T, dataclasses.replace(base, n_layers=1),
-                                  accum, LM_TRAIN_SEQ)
             say(f"[lm_train] {arch}: not run: one of its {base.n_layers} "
-                f"layers reckons {one / 2**30:.1f} GiB, over the "
+                f"layers reckons {reckoned / 2**30:.1f} GiB (the meta trace "
+                f"at {LM_TRAIN_PROBE_DEPTHS} layers, extrapolated), over the "
                 f"{LM_TRAIN_BUDGET_GIB} GiB budget of one card")
             continue
         t_arch = time.perf_counter()
         cfg = dataclasses.replace(base, n_layers=depth)
-        reckoned = lm_train_reckon(T, cfg, accum, LM_TRAIN_SEQ)
+        torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED)
         params = T.init_params(cfg, gen, dev)
@@ -2368,8 +2411,9 @@ def lm_train_phase(dev) -> dict:
         pred = LM_TRAIN_PREDICTED.get(arch)
         records[arch] = dict(depth=depth, n=n, accum=accum, step_s=step_s,
                              tok_s=tok_s, tflops=tflops, peak_gib=peak / 2**30,
-                             reckoned_gib=reckoned / 2**30, busy=busy / wall,
-                             top=top, losses=losses)
+                             cell_gib=(peak - resident) / 2**30,
+                             reckoned_gib=reckoned / 2**30, reckon=rec,
+                             busy=busy / wall, top=top, losses=losses)
         say(f"[lm_train] {arch} ({depth} of {base.n_layers} layers, N = {n} "
             f"parameters with the embeddings, bfloat16, remat {cfg.remat}, "
             f"q_chunk {cfg.q_chunk}): {accum} x {LM_TRAIN_SEQ} tokens a step; "
@@ -2379,8 +2423,10 @@ def lm_train_phase(dev) -> dict:
             f"{[round(x[0], 4) for x in later]}; step {step_s:.3f} s (median "
             f"of {LM_TRAIN_TIMED}: {[round(x[2], 3) for x in later]}; the "
             f"first {refed[0][2]:.3f} s), {tok_s:.0f} tokens/s, "
-            f"{tflops:.1f} TFLOP/s of 6 N T; peak {peak / 2**30:.2f} GiB "
-            f"(reckoned {reckoned / 2**30:.2f}); busy {busy:.1f} of "
+            f"{tflops:.1f} TFLOP/s of 6 N T; peak {peak / 2**30:.2f} GiB, "
+            f"{(peak - resident) / 2**30:.2f} above the {resident / 2**30:.2f} "
+            f"resident before the config (reckoned {reckoned / 2**30:.2f} "
+            f"on the meta device in {t_reckon:.1f} s); busy {busy:.1f} of "
             f"{wall:.1f} ms ({100 * busy / wall:.1f}%); top kernels {top}"
             + (f"; predicted step {pred[0]} s, {pred[1]} tokens/s, peak "
                f"{pred[2]} GiB, busy {pred[3]} %" if pred else "")
@@ -2426,6 +2472,9 @@ def lm_train_phase(dev) -> dict:
                  f"{LM_REMAT_TOL})")
         records[f"{arch}/check"] = dict(r, remat_err=remat_err,
                                         bitwise=bitwise)
+        if arch == LM_GRAD_TREE:  # the compress check's tree (phase 22)
+            records["grads"] = {k: gr.cpu() for k, gr in zip(
+                named, grads[True][1])}
         say(f"[lm_train] {arch} float32, 2 layers, full width, {gb} x {seq} "
             f"tokens, accum {acc}, q_chunk {qc}: one lm_train_step card vs "
             f"CPU: {step_line(r, LM_TRAIN_TOL)}; remat on vs off on the "
@@ -2484,10 +2533,17 @@ def recsys_train_phase(dev) -> dict:
         f"loss {r['loss']:.5f}; one bst_train_step card vs CPU: "
         f"{step_line(r, RS_TRAIN_TOL)}")
     del on_cpu
+    phase_peak = torch.cuda.max_memory_allocated()
 
     step = bst_train_step(cfg, device=dev)
     batches = [rs_batch(RS, batch_at(cfg, b, k, seed=SEED), dev)
                for k in range(1, 3 + RS_TRAIN_TIMED)]
+    # the timed steps' own peak, apart from the check above and the other
+    # batches (phase 22 holds it to the train cell)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() - tree_bytes(
+        (on_dev, opt, batches[0]))
     times, losses = [], []
     for k in range(1 + RS_TRAIN_TIMED):
         torch.cuda.synchronize()
@@ -2495,8 +2551,9 @@ def recsys_train_phase(dev) -> dict:
         on_dev, opt, m = step(on_dev, opt, batches[k])
         losses.append(float(m["loss"]))
         times.append(1e3 * (time.perf_counter() - t0))
+    cell_peak = torch.cuda.max_memory_allocated()
     wall, busy, top, _ = busy_share(lambda: step(on_dev, opt, batches[-1]))
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(phase_peak, torch.cuda.max_memory_allocated())
     if not all(np.isfinite(losses)):
         fail(f"recsys_train: losses {losses}")
     step_ms = float(np.median(times[1:]))
@@ -2512,7 +2569,7 @@ def recsys_train_phase(dev) -> dict:
     torch.cuda.empty_cache()
     say(f"[recsys_train] phase {time.perf_counter() - t_phase:.1f} s")
     return dict(r, step_ms=step_ms, peak_gib=peak / 2**30, busy=busy / wall,
-                top=top)
+                top=top, cell_gib=(cell_peak - resident) / 2**30)
 
 
 # ---------------------------------------------------------------------- #
@@ -2621,8 +2678,10 @@ def engine_phase(dev) -> dict:
     t_shard = time.perf_counter() - t0
     (ablk, an), (bblk, bn), (cblk, cn) = laid
     del laid
+    torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # before the step's inputs
 
     def cols(blk):
         return [torch.from_numpy(np.ascontiguousarray(blk[:, :, j])).to(dev)
@@ -2648,11 +2707,14 @@ def engine_phase(dev) -> dict:
         torch.cuda.synchronize()
         return out
 
-    times = []
+    times, out = [], None
     for _ in range(ENGINE_TIMED):
+        out = None  # the previous run's outputs freed before the next
         t0 = time.perf_counter()
-        out_cols, out_n, ovf = run_build()
+        out = run_build()
         times.append(1e3 * (time.perf_counter() - t0))
+    out_cols, out_n, ovf = out
+    del out
     build_peak = torch.cuda.max_memory_allocated()
     counts = out_n.cpu().numpy()
     if bool(ovf.any()):
@@ -2683,17 +2745,22 @@ def engine_phase(dev) -> dict:
         f"{pred[1]} GiB")
     del a, b, got, mine, want
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    q_resident = torch.cuda.memory_allocated()
     qargs = [torch.from_numpy(ca).to(dev), torch.from_numpy(cb).to(dev)] + \
         cols(cblk) + [torch.from_numpy(cn).to(dev)]
     qstep = engine_query_step(spec, query, mesh)
-    times = []
+    times, out = [], None
     for _ in range(ENGINE_TIMED):
+        out = None  # the previous run's outputs freed before the next
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (pv, pu), pn = qstep(*qargs)
+        out = qstep(*qargs)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
+    (pv, pu), pn = out
+    del out
     query_peak = torch.cuda.max_memory_allocated()
     wall, busy, top, _ = busy_share(lambda: qstep(*qargs))
     t0 = time.perf_counter()
@@ -2725,7 +2792,194 @@ def engine_phase(dev) -> dict:
     say(f"[engine] phase {time.perf_counter() - t_phase:.1f} s")
     return dict(build_ms=build_ms, build_rows=int(counts.sum()),
                 build_peak_gib=build_peak / 2**30, query_ms=query_ms,
-                query_rows=int(pn.sum()), query_peak_gib=query_peak / 2**30)
+                query_rows=int(pn.sum()), query_peak_gib=query_peak / 2**30,
+                build_cell_gib=(build_peak - resident) / 2**30,
+                query_cell_gib=(query_peak - q_resident) / 2**30,
+                block_rows=cap)
+
+
+# ---------------------------------------------------------------------- #
+# 22. reckon: the dry run's cells against the peaks phases 16-21 measured
+# ---------------------------------------------------------------------- #
+
+# written before the first chip run of this phase (PERF.md §6): a
+# configuration's measured peak (its step's, above what else was resident)
+# over the peak its cell reckons on the meta device lies in this band, with
+# this slack above it for the libraries' workspaces and the allocator's
+# rounding
+RECKON_BAND = (0.98, 1.05)
+RECKON_SLACK_GIB = 0.25
+COMPRESS_SHARDS = 4  # the wire bytes of compressed_psum_grads at this many
+LM_GRAD_TREE = "granite-moe-3b-a800m"  # whose float32 gradients phase 22 quantizes
+RECKON_SPENT = {"s": 0.0, "traces": 0}  # host time of every meta trace
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the distinct storages of the tensors in ``tree`` (tensors,
+    modules, dicts, lists and tuples)."""
+    import torch
+
+    seen, total, stack = set(), 0, [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, torch.Tensor):
+            st = node.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif isinstance(node, torch.nn.Module):
+            stack.extend(node.parameters())
+        elif isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+    return total
+
+
+def reckon(arch: str, shape: str, **reduce) -> dict:
+    """The dry run's record of ``arch`` at ``shape`` cut by ``reduce``: the
+    cell (``launch.steps.build_cell``) traced on the meta device by
+    ``roofline.collect.analyze_step``.  Its host time is counted in
+    ``RECKON_SPENT``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.roofline.collect import analyze_step
+
+    t0 = time.perf_counter()
+    spec = get_arch(arch)
+    sh = spec.shape(shape)
+    rec = analyze_step(build_cell(spec, sh, "meta", **reduce))
+    rec.update(arch=arch, shape=shape, kind=sh.kind, reduced=dict(reduce),
+               dims={k: reduce.get(k, v) for k, v in sh.dims.items()})
+    RECKON_SPENT["s"] += time.perf_counter() - t0
+    RECKON_SPENT["traces"] += 1
+    return rec
+
+
+def useful_frac(rec: dict):
+    """``analysis.model_flops`` of the record's cut configuration over the
+    FLOPs its trace counted (None where the family has no model count)."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.roofline import analysis, collect
+
+    spec = get_arch(rec["arch"])
+    cut = {k: v for k, v in rec["reduced"].items() if hasattr(spec.config, k)}
+    spec = dataclasses.replace(
+        spec, config=dataclasses.replace(spec.config, **cut))
+    with mock.patch("repro_torch.configs.get_arch", lambda _: spec):
+        mf = analysis.model_flops(rec)
+    return collect.roofline_terms(rec, model_flops=mf).get("useful_flop_frac")
+
+
+def reckon_phase(dev, measured: dict) -> dict:
+    """Phase 22: every configuration phases 16-21 ran, at its cut depth,
+    batch and shards, reckoned on the meta device (phase 19's training
+    configs were reckoned there, to pick their depths) and printed beside
+    the peak its step reached on the card, which must lie in
+    ``RECKON_BAND``; each record's useful FLOP fraction against
+    ``analysis.model_flops``.  Then one GNN and one LM gradient tree of
+    phases 16 and 19 quantized by ``train.compress`` on the card and on
+    the CPU, bit for bit, and the bytes ``compressed_psum_grads`` would put
+    on the wire.  No hand-written kernel is on this path."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.roofline import collect
+    from repro_torch.train import compress as C
+
+    t_phase = time.perf_counter()
+    rows = []
+    for arch in GNN_ARCHS:
+        m = measured["gnn"][arch]
+        dims = get_arch(arch).shape("minibatch_lg").dims
+        cut = {k: v for k, v in (("pad_nodes", m["n"]), ("pad_edges", m["e"]))
+               if v != dims[k]}
+        rows.append((f"gnn {arch} minibatch_lg",
+                     reckon(arch, "minibatch_lg", **cut), m["cell_gib"]))
+    for arch in LM_ARCHS:
+        rows.append((f"lm {arch} decode step ({LM_DEPTH[arch]} layers, "
+                     f"{LM_SLOTS} x {LM_MAX_LEN})",
+                     reckon(arch, "decode_32k", n_layers=LM_DEPTH[arch],
+                            global_batch=LM_SLOTS, seq_len=LM_MAX_LEN),
+                     measured["lm"][arch]["cell_gib"]))
+    for name, _ in RS_SERVE:
+        rows.append((f"recsys {name}", reckon("bst", name),
+                     measured["recsys"][name]["cell_gib"]))
+    for arch, r in measured["lm_train"].items():
+        if "reckon" in r:
+            rows.append((f"lm_train {arch} ({r['depth']} layers, accum "
+                         f"{r['accum']})", r["reckon"], r["cell_gib"]))
+    rows.append(("recsys_train train_batch", reckon("bst", "train_batch"),
+                 measured["recsys_train"]["cell_gib"]))
+    e = measured["engine"]
+    for shape, key in (("build_64m", "build_cell_gib"),
+                       ("query_s", "query_cell_gib")):
+        rows.append((f"engine {shape} ({ENGINE_SHARDS} shards x "
+                     f"{e['block_rows']} rows)",
+                     reckon("cpqx-engine", shape, n_shards=ENGINE_SHARDS,
+                            block_rows=e["block_rows"]), e[key]))
+    lo, hi = RECKON_BAND
+    out, bad = {}, []
+    for what, rec, got in rows:
+        want = rec["per_device_hbm_bytes"] / 2**30
+        ok = lo * want <= got <= hi * want + RECKON_SLACK_GIB
+        frac = useful_frac(rec)
+        t = collect.roofline_terms(rec)
+        out[what] = dict(reckoned_gib=want, measured_gib=got, ok=ok,
+                         useful=frac, flops=rec["total_flops"],
+                         traffic=rec["hlo_bytes"], bound_s=t["bound_s"],
+                         dominant=t["dominant"])
+        say(f"[reckon] {what}: reckoned {want:.3f} GiB (arguments "
+            f"{rec['argument_size_in_bytes'] / 2**30:.3f}, temporaries "
+            f"{rec['temp_size_in_bytes'] / 2**30:.3f}), measured "
+            f"{got:.3f} GiB, x{got / want:.4f} (band {RECKON_BAND} + "
+            f"{RECKON_SLACK_GIB} GiB: {'in' if ok else 'OUT'}); "
+            f"{rec['total_flops']:.4g} FLOP, {rec['hlo_bytes']:.4g} bytes "
+            f"moved in {rec['n_ops']} ops; roofline bound {t['bound_s']:.4g} "
+            f"s ({t['dominant']}); useful FLOP fraction "
+            + (f"{frac:.3f}" if frac is not None else "- (no model count)"))
+        if not ok:
+            bad.append(what)
+    if bad:
+        fail(f"reckon: measured peaks outside {RECKON_BAND} (+ "
+             f"{RECKON_SLACK_GIB} GiB) of the reckoned: {bad}")
+    say(f"[reckon] {RECKON_SPENT['traces']} meta traces in "
+        f"{RECKON_SPENT['s']:.1f} s of host time (phase 19's included)")
+
+    # ---- compress: two gradient trees, card vs CPU, bit for bit ------- #
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    for what, tree in ((f"gnn {GNN_GRAD_TREE} (phase 16)",
+                        measured["gnn"]["grads"]),
+                       (f"lm_train {LM_GRAD_TREE} float32, 2 layers (phase "
+                        f"19)", measured["lm_train"]["grads"])):
+        t0 = time.perf_counter()
+        for name, g in tree.items():
+            res = {d: torch.zeros(g.shape, device=d) for d in ("cpu", dev)}
+            for _ in range(2):  # the second round feeds the residual back
+                got = {d: C.quantize_with_feedback(g.to(d), res[d])
+                       for d in ("cpu", dev)}
+                (q_c, s_c, _), res["cpu"] = got["cpu"]
+                (q_d, s_d, _), res[dev] = got[dev]
+                if not (torch.equal(q_d.cpu(), q_c)
+                        and torch.equal(bits(s_d).cpu(), bits(s_c))
+                        and torch.equal(bits(res[dev]).cpu(),
+                                        bits(res["cpu"]))):
+                    fail(f"compress {what}: {name} quantized on the card "
+                         f"differs from the CPU")
+        wire, values = C.wire_bytes(tree, COMPRESS_SHARDS)
+        say(f"[reckon] compress {what}: {len(tree)} leaves, {values} values: "
+            f"quantize_with_feedback (two rounds, the residual fed back) on "
+            f"the card equals the CPU bit for bit (int8 blocks, scales, "
+            f"residuals); compressed_psum_grads at {COMPRESS_SHARDS} shards "
+            f"would put {wire} bytes on the wire, {wire / values:.4f} a "
+            f"value, against 8 for a float32 ring all-reduce; "
+            f"{time.perf_counter() - t0:.1f} s")
+    say(f"[reckon] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -3875,7 +4129,7 @@ def main() -> int:
     # builds CPQx on the card first: its path has fingerprint_rows.
     torch.cuda.empty_cache()
     zero_counts()
-    gnn_phase(dev)
+    measured = {"gnn": gnn_phase(dev)}
     path_counts["gnn"] = read_counts("gnn (train steps; kernel set: none)", ())
     if any(path_counts["gnn"].values()):
         fail(f"the gnn path launched {path_counts['gnn']}; its kernel set is "
@@ -3893,7 +4147,7 @@ def main() -> int:
     for name, phase in (("lm", lm_phase), ("recsys", recsys_phase)):
         torch.cuda.empty_cache()
         zero_counts()
-        phase(dev)
+        measured[name] = phase(dev)
         path_counts[name] = read_counts(f"{name} (serving; kernel set: none)", ())
         if any(path_counts[name].values()):
             fail(f"the {name} path launched {path_counts[name]}; its kernel "
@@ -3909,11 +4163,23 @@ def main() -> int:
                         ("engine", engine_phase)):
         torch.cuda.empty_cache()
         zero_counts()
-        phase(dev)
+        measured[name] = phase(dev)
         path_counts[name] = read_counts(f"{name} (kernel set: none)", ())
         if any(path_counts[name].values()):
             fail(f"the {name} path launched {path_counts[name]}; its kernel "
                  "set is empty")
+
+    # ---- 22. reckon: the meta-device dry run against phases 16-21 ------ #
+    # Its kernel set is empty: the traces run on the meta device, and the
+    # compress check is torch ops on the card and the CPU.
+    torch.cuda.empty_cache()
+    zero_counts()
+    reckon_phase(dev, measured)
+    path_counts["reckon"] = read_counts("reckon (kernel set: none)", ())
+    if any(path_counts["reckon"].values()):
+        fail(f"the reckon path launched {path_counts['reckon']}; its kernel "
+             "set is empty")
+    del measured
     shutil.rmtree(ckpt_root, ignore_errors=True)
     for name, fn in real.items():
         setattr(ops, name, fn)

@@ -15,8 +15,12 @@ Guarantees:
     entries are fsync'd before the rename, and the rename itself is made
     durable before LATEST moves — the pointer can never lead a committed
     step to disk;
-  * async: writes happen on a daemon thread; ``wait_for_writes`` joins
-    (registered via atexit so interpreter exit can't drop a write);
+  * async: writes happen on daemon threads that commit one at a time,
+    in the order the saves were issued (each joins the one before it);
+    ``LATEST`` only moves forward, through a temporary pointer file no
+    other writer shares.  ``wait_for_writes`` joins them (registered via
+    atexit so interpreter exit can't drop a write), and a writer's
+    exception is re-raised there and by the next ``save_checkpoint``;
   * crash-tolerant discovery: ``latest_step`` treats LATEST as the
     commit point when it is readable and points at a real manifest, and
     otherwise falls back to scanning ``step_*`` dirs — uncommitted
@@ -38,14 +42,16 @@ import json
 import os
 import re
 import shutil
+import tempfile
 import threading
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-_PENDING: list = []
 _LOCK = threading.Lock()
+_TAIL: list = []  # the newest async writer, if any
+_ERRORS: list = []  # exceptions of async writers, not yet re-raised
 
 
 def _is_namedtuple(x) -> bool:
@@ -53,46 +59,49 @@ def _is_namedtuple(x) -> bool:
 
 
 def _flatten_with_paths(tree):
-    """(paths, leaves) of ``tree`` in the reference's order and spelling."""
+    """(paths, leaves) of ``tree`` in the reference's order and spelling.
+    The walk is a module function, not a closure over the output lists: a
+    recursive closure is a reference cycle, which would keep the leaves
+    (a step's gradients) alive until the cyclic collector runs."""
     paths, leaves = [], []
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for key in sorted(node):
-                walk(node[key], prefix + (f"[{key!r}]",))
-        elif _is_namedtuple(node):
-            for name, child in zip(node._fields, node):
-                walk(child, prefix + (f".{name}",))
-        elif isinstance(node, (list, tuple)):
-            for i, child in enumerate(node):
-                walk(child, prefix + (f"[{i}]",))
-        else:
-            paths.append("/".join(prefix))
-            leaves.append(node)
-
-    walk(tree, ())
+    _walk(tree, (), paths, leaves)
     return paths, leaves
 
 
+def _walk(node, prefix, paths, leaves) -> None:
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _walk(node[key], prefix + (f"[{key!r}]",), paths, leaves)
+    elif _is_namedtuple(node):
+        for name, child in zip(node._fields, node):
+            _walk(child, prefix + (f".{name}",), paths, leaves)
+    elif isinstance(node, (list, tuple)):
+        for i, child in enumerate(node):
+            _walk(child, prefix + (f"[{i}]",), paths, leaves)
+    else:
+        paths.append("/".join(prefix))
+        leaves.append(node)
+
+
 def _unflatten(like, leaves):
-    """``like``'s structure with its leaves replaced, in flatten order."""
-    it = iter(leaves)
+    """``like``'s structure with its leaves replaced, in flatten order
+    (a module function for the reason :func:`_flatten_with_paths` gives)."""
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            out = {key: build(node[key]) for key in sorted(node)}
-            return {key: out[key] for key in node}
-        if _is_namedtuple(node):
-            return type(node)(*(build(child) for child in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(child) for child in node)
-        return next(it)
 
-    return build(like)
+def _build(node, it):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        out = {key: _build(node[key], it) for key in sorted(node)}
+        return {key: out[key] for key in node}
+    if _is_namedtuple(node):
+        return type(node)(*(_build(child, it) for child in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(child, it) for child in node)
+    return next(it)
 
 
 # str(DictKey('x')) renders as "['x']"; strip the decoration so flat-dict
@@ -193,29 +202,61 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
             shutil.rmtree(final)
         os.rename(tmp, final)  # atomic commit
         _fsync_dir(ckpt_dir)  # the rename itself durable before LATEST
-        latest_tmp = os.path.join(ckpt_dir, "LATEST.tmp")
-        with open(latest_tmp, "w") as f:
-            f.write(str(step))
-            _fsync_file(f)
-        os.replace(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
-        _fsync_dir(ckpt_dir)
+        current = latest_step(ckpt_dir)
+        if current is None or current <= step:  # LATEST only moves forward
+            fd, latest_tmp = tempfile.mkstemp(prefix="LATEST.", suffix=".tmp",
+                                              dir=ckpt_dir)
+            with os.fdopen(fd, "w") as f:
+                f.write(str(step))
+                _fsync_file(f)
+            os.replace(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
+            _fsync_dir(ckpt_dir)
         return final
 
-    if async_write:
-        t = threading.Thread(target=_write, daemon=True)
-        with _LOCK:
-            _PENDING.append(t)
+    _raise_stored()
+    if not async_write:
+        wait_for_writes()  # commits stay in the order they were issued
+        return _write()
+    with _LOCK:
+        prev = _TAIL[0] if _TAIL else None
+        t = threading.Thread(target=_after, args=(prev, _write), daemon=True)
+        _TAIL[:] = [t]
         t.start()
-        return _step_dir(ckpt_dir, step)
-    return _write()
+    return _step_dir(ckpt_dir, step)
+
+
+def _after(prev, write) -> None:
+    """An async writer: wait for the one issued before it, then write;
+    an exception is stored for :func:`wait_for_writes` to re-raise."""
+    if prev is not None:
+        prev.join()
+    try:
+        write()
+    except Exception as err:  # noqa: BLE001 — a thread's boundary: kept
+        with _LOCK:
+            _ERRORS.append(err)
+
+
+def _raise_stored() -> None:
+    """Re-raise the first stored writer exception (all are cleared)."""
+    with _LOCK:
+        errors = list(_ERRORS)
+        _ERRORS.clear()
+    if errors:
+        raise errors[0]
 
 
 def wait_for_writes():
+    """Join every async writer issued so far; re-raise a writer's
+    exception."""
     with _LOCK:
-        pending = list(_PENDING)
-        _PENDING.clear()
-    for t in pending:
-        t.join()
+        tail = _TAIL[0] if _TAIL else None
+    if tail is not None:
+        tail.join()  # each writer joined the one before it
+        with _LOCK:
+            if _TAIL and _TAIL[0] is tail:
+                _TAIL.clear()
+    _raise_stored()
 
 
 # a daemon writer thread dies with the interpreter mid-write; joining at

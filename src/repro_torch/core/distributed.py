@@ -17,7 +17,8 @@ The exchange
 ------------
 The reference runs one program per device inside ``shard_map`` and moves
 rows with ``all_to_all``; its overflow flags are ``psum``-reduced and a
-shard knows itself by ``axis_index``.  Here those three collectives sit
+shard knows itself by ``axis_index`` (``train/compress.py`` adds an
+``all_gather``).  Here those collectives sit
 behind :class:`InProcessExchange`: the n shards live on one device, the
 all-to-all is a transpose of the packed (n, n, bucket_cap) buckets, the
 reduction an ``any`` over the shard dimension, and a shard's index is
@@ -95,9 +96,9 @@ def make_mesh(n_shards: int, axis: str = "engine", device=None) -> ShardMesh:
 
 
 class InProcessExchange:
-    """The three collectives of the sharded walker, for ``n_shards``
-    shards folded into the lane dimension of tensors on one device
-    (shard-major lanes: lane ``s * B + b``)."""
+    """The collectives of the sharded walker (and ``all_gather``), for
+    ``n_shards`` shards folded into the lane dimension of tensors on one
+    device (shard-major lanes: lane ``s * B + b``)."""
 
     def __init__(self, n_shards: int):
         self.n_shards = n_shards
@@ -113,6 +114,15 @@ class InProcessExchange:
         lanes = blocks.shape[0]
         shaped = blocks.reshape((n, lanes // n, n) + blocks.shape[2:])
         return shaped.transpose(0, 2).reshape(blocks.shape)
+
+    def all_gather(self, blocks: torch.Tensor) -> torch.Tensor:
+        """Every shard receives every shard's block, shard ``d``'s as
+        block ``d``: (n * B, ...) -> (n * B, n, ...)."""
+        n = self.n_shards
+        lanes = blocks.shape[0]
+        every = blocks.reshape((n, lanes // n) + blocks.shape[1:]).transpose(0, 1)
+        return every.unsqueeze(0).expand((n,) + every.shape).reshape(
+            (lanes, n) + blocks.shape[1:])
 
     def any_shard(self, flags: torch.Tensor) -> torch.Tensor:
         """(n * B,) per-shard flags -> (B,) per query."""

@@ -77,7 +77,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "repro_torch.configs.granite_moe_3b_a800m",
               "repro_torch.configs.grok_1_314b",
               "repro_torch.data.tokens", "repro_torch.launch.train",
-              "repro_torch.configs.cpqx_engine"):
+              "repro_torch.configs.cpqx_engine", "repro_torch.train.compress",
+              "repro_torch.launch.dryrun", "repro_torch.roofline",
+              "repro_torch.roofline.op_cost", "repro_torch.roofline.collect",
+              "repro_torch.roofline.analysis"):
         assert m in mods
 
 
