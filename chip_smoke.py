@@ -32,8 +32,8 @@ Phases, each printed on its own lines:
                  through an eager engine give the same-run yardstick;
 6. iacpqx      — iaCPQx of the same graph over six seeded 2-sequences, and the
                  same queries through it;
-7. maintenance — the lazily maintained host mirror of CPQx: two rounds of
-                 100 mixed updates, each applied, flushed to the card and
+7. maintenance — the lazily maintained host mirror of CPQx: one round of
+                 100 mixed updates, applied, flushed to the card and
                  rebound (the old backend's graphs dropped), its answers
                  checked, beside a full rebuild; then one interest round on an
                  iaCPQx mirror;
@@ -85,7 +85,7 @@ Phases, each printed on its own lines:
                  full_graph_sm; then at minibatch_lg (random_csr(232 965,
                  avg_degree=492), 1 024 seeds sampled at fanout (15, 10) by
                  the port's sampler) a forward held to float64, EGNN and
-                 MACE under a rotation and shift, one warm-up and five timed
+                 MACE under a rotation and shift, one warm-up and three timed
                  gnn_steps with peak memory and the device-busy share; then
                  the CPQx-features driver (launch.gnn_features) on the card;
 17. lm         — the five LM configs at full width in bfloat16 at a cut
@@ -112,7 +112,7 @@ Phases, each printed on its own lines:
                  published depth, mistral-nemo at 9 of 40, grok-1 not):
                  the first batch three times at lr 1e-5 (its loss
                  must fall),
-                 three timed steps, tokens/s, 6 N T FLOP/s, peak, busy;
+                 two timed steps, tokens/s, 6 N T FLOP/s, peak, busy;
                  then gemma2-2b and granite in float32 at 2 layers: one
                  lm_train_step card vs CPU, remat on vs off on the card;
 20. recsys_train — BST train_batch (B = 65 536): one bst_train_step card
@@ -130,10 +130,22 @@ Phases, each printed on its own lines:
                  LM gradient tree quantized by train.compress on the card
                  and on the CPU, bit for bit, and the wire bytes of
                  compressed_psum_grads;
+23. process_group — one process a shard: four gloo ranks spawned once, each
+                 on the card with its own CUDA context through
+                 make_process_mesh(): (a) phase 13's calls through
+                 Engine(index, mesh=<the process mesh>) on each rank's shard
+                 restored from phase 13's save (answers equal to the
+                 reference, ladder telemetry equal to phase 13's, query by
+                 query; the walker runs eagerly, gloo cannot be captured);
+                 (b) build_64m on each rank's shard of phase 21's layout,
+                 equal to phase 21's shard bit for bit, then timed; (c)
+                 compressed_psum_grads over the group on phase 16's
+                 GatedGCN gradients, equal to the in-process result bit for
+                 bit;
    then the kernels again, on the built index's own arrays and on the inputs
    the paths gave them, with their times.
 
-Each path (phases 4-5, 6, 7, 8's two services, 9 to 22) is driven with the
+Each path (phases 4-5, 6, 7, 8's two services, 9 to 23) is driven with the
 launch counts set to 0 just before it and read just after; a path that never
 launched one of its kernels fails.  The GNN models' kernel set is empty
 (their substrate op is index_add, and no architecture calls edge_softmax):
@@ -146,7 +158,8 @@ train steps' autograd; the engine cells' relational.py operators; the
 meta traces and the compress check's torch ops).  A graph replay adds the launches its
 capture recorded, so the counts are the kernels that ran.  The cluster's
 kernels run in its worker processes, which report their launches at each
-CHECKPOINT barrier; phase 15 sums those reports.  The last two lines are
+CHECKPOINT barrier; phase 15 sums those reports, and phase 23 sums its
+ranks' (each rank must launch both query-path kernels).  The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}.  Any failure
 exits non-zero; without a CUDA card, or outside a checkout of the
 repository, the script exits non-zero before printing any result.
@@ -154,10 +167,13 @@ repository, the script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import atexit
 import json
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -166,7 +182,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 N_VERTICES = 20_000
 MAINT_VERTICES = 20_000  # the maintenance phase's graph (the host mirror's size)
-MAINT_ROUNDS = 2  # 3 until PR 19; cut to keep the script to its time limit
+MAINT_ROUNDS = 1  # was 3, then 2; cut to keep the script to its time limit
 MAINT_OPS = 100
 N_INTERESTS = 6
 K = 2
@@ -197,7 +213,9 @@ RPQ_TEXTS = [
     "MATCH (a)-[:l0]->(b)-[:l1]->(c) RETURN a, c",
 ]
 PIN_TRIES = 5  # sources tried when a star must be pinned
-PATH_ROUNDS = 4  # PathEngine passes over phase 5's draws (the first warms up)
+# PathEngine passes over phase 5's draws (the first warms up; was 4, cut
+# to keep the script to its time limit)
+PATH_ROUNDS = 2
 SLO_DISPATCHES = 12  # the SLO budget, in requests of median predicted cost
 # src/repro/configs/__init__.py gnn_shapes at the repository's GatedGCN width
 # (configs/gatedgcn.py d_hidden=70): (name, E, D, N)
@@ -1160,7 +1178,7 @@ GNN_ARCHS = ("gatedgcn", "egnn", "mace", "graphcast")
 GNN_GRAPH = (232_965, 492)  # minibatch_lg's CSR graph: nodes, mean degree
 GNN_SEEDS = 1024  # seed nodes of the sampled batch
 GNN_FANOUT = (15, 10)
-GNN_STEPS = 5  # timed train steps, after one warm-up
+GNN_STEPS = 3  # timed train steps, after one warm-up (was 5)
 GNN_GRAD_TREE = "gatedgcn"  # whose first gradients phase 22 quantizes
 GNN_CHECK_SHAPES = ("molecule", "full_graph_sm")  # card vs CPU
 # rel_err tolerances: card vs CPU (output and loss; each gradient: the
@@ -2139,7 +2157,7 @@ LM_TRAIN_REFED = 3  # steps on the stream's first batch: its loss must fall
 # several times themselves, and the re-fed loss rises in the reference too
 # (ROADMAP Queue 3); the timed steps run at the cell's rate
 LM_TRAIN_REFED_LR = 1e-5
-LM_TRAIN_TIMED = 3  # steps on the next batches, the median kept
+LM_TRAIN_TIMED = 2  # steps on the next batches, the median kept (was 3)
 # a depth runs if its reckoned peak (``reckon``: the cell traced on the meta
 # device) fits this: the rest of the card's 80 GB is the allocator's slack
 # and the libraries' workspaces
@@ -2329,7 +2347,7 @@ def lm_train_phase(dev) -> dict:
     """Phase 19: LM training at full width in bfloat16, seq_len 4 096,
     ``TRAIN_ACCUM[arch]`` microbatches of one sequence a step, parameters
     drawn on the card: the stream's first batch three times (its loss must
-    fall), then three timed steps on the next batches.  Then gemma2-2b and
+    fall), then LM_TRAIN_TIMED timed steps on the next batches.  Then gemma2-2b and
     granite at full width, 2 layers, float32: one ``lm_train_step`` card
     vs CPU, and the loss's gradients with remat on vs off on the card.  No
     hand-written kernel is on this path."""
@@ -2578,7 +2596,7 @@ def recsys_train_phase(dev) -> dict:
 
 ENGINE_SHARDS = 4  # in-process shards (the production mesh: 256 chips)
 ENGINE_SLACK = 16  # a shard's block holds per + per / ENGINE_SLACK rows
-ENGINE_TIMED = 5  # step runs, the median kept
+ENGINE_TIMED = 3  # step runs, the median kept (was 5)
 # written before the first chip run (PERF.md §6, PR 20): step ms, peak GiB
 ENGINE_PREDICTED = {"build_64m": ((1_000, 4_000), (20, 35)),
                     "query_s": ((50, 150), (2, 6))}
@@ -2613,7 +2631,7 @@ def engine_canonical(v, u, x, y, id_bits: int, seq_bits: int) -> tuple:
     return k1[keep], k2[keep]
 
 
-def engine_phase(dev) -> dict:
+def engine_phase(dev, shard_dir: Path) -> dict:
     """Phase 21: ``engine_cell``'s two steps at ``cpqx-engine``'s published
     dimensions on ``make_mesh(4)``.  ``build_64m``: two seeded arity-3
     relations of 64 Mi rows, ``v`` and ``m`` (and ``u``) uniform over 64
@@ -2627,7 +2645,9 @@ def engine_phase(dev) -> dict:
     sorted lists of 65 536 lookup classes; each shard's result equals its
     slice filtered by numpy ``isin``, in order.  No hand-written kernel is
     on this path (the join is ``relational.expansion_join``'s torch ops,
-    as it is jnp ops in the reference)."""
+    as it is jnp ops in the reference).  For phase 23 each shard's
+    ``build_64m`` inputs are written under ``shard_dir`` and each shard's
+    output recorded by :func:`shard_digest`."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -2678,6 +2698,13 @@ def engine_phase(dev) -> dict:
     t_shard = time.perf_counter() - t0
     (ablk, an), (bblk, bn), (cblk, cn) = laid
     del laid
+    t0 = time.perf_counter()
+    shard_dir.mkdir(parents=True, exist_ok=True)
+    for i in range(s):  # phase 23's ranks read their shard from these
+        for side, blk, cnt in (("a", ablk, an), ("b", bblk, bn)):
+            np.save(shard_dir / f"{side}{i}.npy", blk[i])
+            np.save(shard_dir / f"{side}n{i}.npy", cnt[i:i + 1])
+    t_files = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2694,7 +2721,9 @@ def engine_phase(dev) -> dict:
         f"(v, m, u uniform over {n} ids, the third column over {n_seqs}) and "
         f"an I_c2p of {n} pairs over {n_cls} classes drawn in {t_gen:.1f} s, "
         f"laid out by shard_relation ({s} x {cap} rows a relation; a by v, b "
-        f"by u, I_c2p by v) in {t_shard:.1f} s; reckoned: inputs, exchange buckets of "
+        f"by u, I_c2p by v) in {t_shard:.1f} s, each shard's build inputs "
+        f"written for phase 23 in {t_files:.1f} s; reckoned: inputs, "
+        f"exchange buckets of "
         f"{bucket} rows a side and {4 * per} output rows a shard "
         f"{reckon / 2**30:.2f} GiB before the sorts' keys and permutations")
     args = cols(ablk) + [torch.from_numpy(an).to(dev)] + cols(bblk) + \
@@ -2722,6 +2751,8 @@ def engine_phase(dev) -> dict:
     t0 = time.perf_counter()
     got = [np.concatenate([c[i, :counts[i]].cpu().numpy() for i in range(s)])
            for c in out_cols]
+    digests = [shard_digest([c[i] for c in out_cols], out_n[i], ovf[i],
+                            R.SENTINEL) for i in range(s)]
     del out_cols, out_n, ovf, args
     torch.cuda.empty_cache()
     mine = engine_canonical(*got, id_bits, seq_bits)
@@ -2795,7 +2826,7 @@ def engine_phase(dev) -> dict:
                 query_rows=int(pn.sum()), query_peak_gib=query_peak / 2**30,
                 build_cell_gib=(build_peak - resident) / 2**30,
                 query_cell_gib=(query_peak - q_resident) / 2**30,
-                block_rows=cap)
+                block_rows=cap, digests=digests, build_shape=build)
 
 
 # ---------------------------------------------------------------------- #
@@ -2980,6 +3011,368 @@ def reckon_phase(dev, measured: dict) -> dict:
             f"{time.perf_counter() - t0:.1f} s")
     say(f"[reckon] phase {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------- #
+# 23. process_group: one process a shard, four gloo ranks on the card
+# ---------------------------------------------------------------------- #
+
+PG_RANKS = 4  # gloo ranks, each its own process and CUDA context on the card
+PG_TIMED = 2  # build_64m steps timed at PG_RANKS ranks, after one held
+PG_INIT_TIMEOUT_S = 300  # the group's joins and every collective
+PG_RUN_TIMEOUT_S = 600  # the whole spawn, from start to the last answer
+PG_ROLL = 7919  # shard s's gradient: phase 16's rolled by s * PG_ROLL
+# written before the first chip run of this phase (PERF.md §6):
+# execute ms a template at PG_RANKS ranks, build_64m step ms, phase s
+PG_PREDICTED = {"execute_ms": (2, 20), "build_ms": (3_000, 8_000),
+                "phase_s": (50, 75)}
+
+
+def digest(*arrays) -> str:
+    """One hex digest of arrays' dtypes, shapes and bytes (host copies of
+    tensors): equal digests, equal arrays bit for bit."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for a in arrays:
+        a = a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.view(np.uint8).reshape(-1))
+    return h.hexdigest()
+
+
+def shard_digest(cols, count, overflow, sentinel) -> tuple:
+    """(digest of the valid prefix of each output column, count and flag;
+    whether every row past the count is ``sentinel``) of one shard's
+    (cap,) columns: two shards with equal records are equal bit for bit."""
+    n = int(count)
+    pad = all(bool((c[n:] == sentinel).all()) for c in cols)
+    return digest(*(c[:n] for c in cols), np.int64(n),
+                  np.bool_(bool(overflow))), pad
+
+
+def host_available_gib():
+    """The host's MemAvailable now (GiB), or None where the kernel does
+    not say."""
+    with open("/proc/meminfo") as f:
+        fields = dict(line.split(":", 1) for line in f)
+    kb = fields.get("MemAvailable")
+    return None if kb is None else int(kb.split()[0]) / 2**20
+
+
+def fmt_gib(mem: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in mem.items()) + " GiB"
+
+
+def pg_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of phase 23: ``make_process_mesh()`` (card ``rank %
+    device_count``), then (a) the phase-4 index's engine on its shard,
+    restored from phase 13's save, over phase 5's draws as phase 13 ran
+    them; (b) ``build_64m``'s step on its shard of phase 21's layout; (c)
+    ``compressed_psum_grads`` over the group on its row of the gradient
+    tree.  Returns digests, times, the exchange's counters and the kernel
+    launches it made."""
+    import resource
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import relational as R
+    from repro_torch.core.backend import QueryCaps
+    from repro_torch.core.distributed import ShardedBackend, make_process_mesh
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.index import CPQxIndex
+    from repro_torch.kernels import (expand_join, fingerprint, segment_softmax,
+                                     sorted_intersect)
+    from repro_torch.launch.steps import engine_build_step
+    from repro_torch.train import compress as C
+
+    torch.set_num_threads(2)
+    t_rank = time.perf_counter()
+    mesh = make_process_mesh(device=job["device"])
+    dev, ex = mesh.device, mesh.exchange
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {"rank": ex.rank, "held": mesh.held, "on": str(dev), "device": (
+        torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")}
+
+    def counters():
+        return ex.calls, ex.wire_bytes, ex.staged_bytes, ex.seconds
+
+    def host_gib():
+        """This process's resident host memory now, by kind (GiB)."""
+        with open("/proc/self/status") as f:
+            fields = dict(line.split(":", 1) for line in f)
+        return {k: int(fields[k].split()[0]) / 2**20
+                for k in ("VmRSS", "VmHWM", "RssAnon", "RssFile", "RssShmem")
+                if k in fields}
+
+    def peak_gib():
+        return (torch.cuda.max_memory_allocated(dev) / 2**30
+                if dev.type == "cuda" else 0.0)
+
+    # (a) the sharded engine on the rank's shard
+    t0 = time.perf_counter()
+    index = CPQxIndex.restore(job["index_dir"], device=job["device"])
+    engine = Engine(index, mesh=mesh, device=job["device"])
+    live = engine.backend
+    restored = ShardedBackend.restore(job["sharded_dir"], mesh,
+                                      device=job["device"])
+    out["restore_equal"] = all(
+        x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(restored.sharded, live.sharded))
+    out["shard_rows"] = int(restored.sharded.c2p_counts.sum())
+    out["eager"] = restored.executables is None
+    engine.backend = restored
+    live.close()
+    del live
+    sync()
+    out["setup_s"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    c0 = counters()
+    trail, answers, lat = [], [], {}
+
+    def mark(rows_list):
+        t = engine.telemetry
+        trail.append((t.dispatches, t.retry_rungs, t.default_jumps))
+        answers.extend(digest(r) for r in rows_list)
+
+    t0 = time.perf_counter()
+    for name, qs in job["draws"]:  # phase 13's order: each template twice
+        for q in qs:
+            mark([engine.execute(q)])
+        times = []
+        for q in qs:
+            t1 = time.perf_counter()
+            rows = engine.execute(q)
+            times.append(1e3 * (time.perf_counter() - t1))
+            mark([rows])
+        lat[name] = float(np.median(times))
+    mark(engine.execute_batch(job["batch"]))
+    mark([engine.execute(job["retry"], caps=QueryCaps(2, 2, 4))])
+    c1 = counters()
+    out["a"] = dict(trail=trail, answers=answers, ms=lat,
+                    telemetry=engine.telemetry.snapshot(),
+                    s=time.perf_counter() - t0,
+                    calls=c1[0] - c0[0], wire=c1[1] - c0[1],
+                    staged=c1[2] - c0[2], gloo_s=c1[3] - c0[3],
+                    peak_gib=peak_gib(), host=host_gib())
+    out["launches"] = {name: mod.launches for name, mod in (
+        ("sorted_member_mask", sorted_intersect),
+        ("expand_join_gather", expand_join),
+        ("fingerprint_rows", fingerprint),
+        ("segment_softmax", segment_softmax))}
+    del engine, restored, index
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # (b) build_64m on the rank's shard of phase 21's layout
+    t0 = time.perf_counter()
+    args = []
+    for side in ("a", "b"):
+        blk = np.load(Path(job["engine_dir"]) / f"{side}{rank}.npy")
+        cnt = np.load(Path(job["engine_dir"]) / f"{side}n{rank}.npy")
+        args += [torch.from_numpy(np.ascontiguousarray(blk[:, j]))[None].to(dev)
+                 for j in range(3)] + [torch.from_numpy(cnt).to(dev)]
+        del blk
+    t_load = time.perf_counter() - t0
+    step = engine_build_step(None, job["engine_shape"], mesh)
+    c0 = counters()
+    cols, count, ovf = step(*args)
+    sync()
+    c1 = counters()
+    held = shard_digest([c[0] for c in cols], count[0], ovf[0], R.SENTINEL)
+    host_held = host_gib()
+    del cols, count, ovf
+    times = []
+    for _ in range(PG_TIMED):
+        dist.barrier()
+        t1 = time.perf_counter()
+        res = step(*args)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t1))
+        del res
+    out["b"] = dict(digest=held, load_s=t_load, ms=times,
+                    calls=c1[0] - c0[0], wire=c1[1] - c0[1],
+                    staged=c1[2] - c0[2], gloo_s=c1[3] - c0[3],
+                    peak_gib=peak_gib(), host=host_held)
+    del args
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) compressed_psum_grads over the group
+    tree = torch.load(job["grads_file"])
+    g = {k: v[rank:rank + 1].to(dev) for k, v in tree.items()}
+    state = C.compress_init(g)
+    steps = []
+    for _ in range(2):  # the second step feeds the residual back
+        mean, state = C.compressed_psum_grads(g, state, ex)
+        steps.append({k: (digest(mean[k][0]), digest(state.residual[k][0]))
+                      for k in sorted(g)})
+    out["c"] = steps
+    out["maxrss_gib"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2**20
+    out["s"] = time.perf_counter() - t_rank
+    return out
+
+
+def process_group_phase(dev, kind: str, job: dict, sh13: dict,
+                        engine21: dict, grads: dict) -> dict:
+    """Phase 23: ``PG_RANKS`` gloo ranks spawned once (``launch.ranks``:
+    a ``FileStore`` in a temporary directory, every wait bounded, every
+    rank killed on the way out), each on the card through
+    ``make_process_mesh()``.  (a) phase 13's engine sequence through
+    ``Engine(index, mesh=<process mesh>)`` on the rank's own shard of
+    phase 13's save: every answer equal to the scipy.sparse reference
+    (and so to phase 13's engine), each query's ladder telemetry equal to
+    phase 13's; no CUDA graph (gloo cannot be captured: the walker runs
+    eagerly).  (b) ``build_64m`` on the rank's shard of phase 21's layout:
+    columns, count and flag equal phase 21's in-process shard bit for
+    bit, then ``PG_TIMED`` steps timed.  (c) ``compressed_psum_grads``
+    over the group on phase 16's GatedGCN gradient tree (shard s's leaves
+    rolled by s * PG_ROLL): each rank's mean and residual equal the
+    in-process result at ``PG_RANKS`` shards on the card bit for bit.
+    Returns the kernel launches the ranks made."""
+    import torch
+    from repro_torch.core.distributed import InProcessExchange
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.train import compress as C
+
+    t_phase = time.perf_counter()
+    n = PG_RANKS
+    stacked = {k: torch.stack([torch.roll(g.reshape(-1), s * PG_ROLL)
+                               .reshape(g.shape) for s in range(n)]).cpu()
+               for k, g in grads.items()}
+    torch.save(stacked, job["grads_file"])
+    # the in-process result on the card, shard by shard
+    g = {k: v.to(dev) for k, v in stacked.items()}
+    state = C.compress_init(g)
+    want_c = []
+    for _ in range(2):
+        mean, state = C.compressed_psum_grads(g, state, InProcessExchange(n))
+        want_c.append([{k: (digest(mean[k][s]), digest(state.residual[k][s]))
+                        for k in sorted(g)} for s in range(n)])
+    del g, state, mean
+    job = dict(job, device=None if dev.type == "cuda" else str(dev),
+               engine_shape=engine21["build_shape"])
+    # the host's available memory, sampled while the ranks run
+    avail, stop = [host_available_gib()], threading.Event()
+
+    def sample():
+        while not stop.wait(0.25):
+            avail.append(host_available_gib())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        results = run_ranks(pg_rank, n, args=(job,),
+                            timeout=PG_RUN_TIMEOUT_S,
+                            init_timeout=PG_INIT_TIMEOUT_S)
+    finally:
+        stop.set()
+        sampler.join(5)
+    t_spawn = time.perf_counter() - t0
+    for r in results:
+        s = r["rank"]
+        if r["held"] != [s] or r["device"] != kind:
+            fail(f"process_group: rank {s} holds shards {r['held']} on "
+                 f"{r['device']!r}, not its own on {kind!r}")
+        # (a)
+        if not r["restore_equal"] or not r["eager"]:
+            fail(f"process_group: rank {s}'s restored shard differs from its "
+                 "shard of the live index, or it captured graphs")
+        a = r["a"]
+        if a["answers"] != sh13["answers"]:
+            bad = [i for i, (x, y) in enumerate(zip(a["answers"],
+                                                    sh13["answers"])) if x != y]
+            fail(f"process_group: rank {s}: answers {bad} of "
+                 f"{len(sh13['answers'])} differ from the reference")
+        if a["trail"] != sh13["trail"] or a["telemetry"] != sh13["telemetry"]:
+            fail(f"process_group: rank {s}'s ladder telemetry "
+                 f"{a['telemetry']} differs from phase 13's "
+                 f"{sh13['telemetry']} (query by query)")
+        # (b)
+        if r["b"]["digest"] != engine21["digests"][s] \
+                or not r["b"]["digest"][1]:
+            fail(f"process_group: rank {s}'s build_64m shard differs from "
+                 f"phase 21's shard {s}")
+        # (c)
+        if [st for st in r["c"]] != [w[s] for w in want_c]:
+            fail(f"process_group: rank {s}'s compressed all-reduce differs "
+                 "from the in-process result")
+    r0 = results[0]
+    q = len(sh13["answers"])
+    say(f"[process_group] {n} gloo ranks spawned once (FileStore rendezvous, "
+        f"{t_spawn:.1f} s from spawn to the last answer; a rank's own work "
+        f"{min(r['s'] for r in results):.1f}-{max(r['s'] for r in results):.1f}"
+        f" s), on {kind} ({', '.join(r['on'] for r in results)}), each "
+        f"holding its own shard; no CUDA "
+        f"graph under a process mesh (gloo's collectives cannot be captured: "
+        f"the walker runs eagerly)")
+    say(f"[process_group] (a) phase 13's {q} engine answers (two passes of "
+        f"phase 5's draws, a batch, the retry from caps (2, 2, 4)) through "
+        f"Engine(index, mesh=make_process_mesh()) on each rank's shard "
+        f"restored from phase 13's {n}-shard save (reading only its rows; "
+        f"equal to the rank's shard of the live index; set-up "
+        f"{max(r['setup_s'] for r in results):.1f} s): every rank's answers "
+        f"equal the scipy.sparse reference and phase 13's engine, the ladder "
+        f"telemetry query by query too ({r0['a']['telemetry']}); "
+        f"{r0['a']['s']:.1f} s; execute median at {n} ranks (eager, gloo) vs "
+        f"phase 13 in process (replayed): " + ", ".join(
+            f"{t} {r0['a']['ms'][t]:.3f} ms ({sh13['ms'][t]:.3f})"
+            for t in TEMPLATES)
+        + f"; predicted {PG_PREDICTED['execute_ms']} ms")
+    a_q = r0["a"]
+    say(f"[process_group] (a) a query: {a_q['calls'] / q:.1f} collectives, "
+        f"{a_q['wire'] / q / 1e3:.1f} kB handed to gloo, "
+        f"{a_q['staged'] / q / 1e3:.1f} kB staged through host memory, "
+        f"{1e3 * a_q['gloo_s'] / q:.2f} ms inside gloo's calls (of "
+        f"{1e3 * a_q['s'] / q:.2f} ms a call) a rank; host memory a rank "
+        f"after it {fmt_gib(a_q['host'])}; peak device memory a rank "
+        + ", ".join(f"{r['a']['peak_gib']:.3f}" for r in results) + " GiB")
+    b_ms = [float(np.median(r["b"]["ms"])) for r in results]
+    wire = sum(r["b"]["wire"] for r in results)
+    staged = sum(r["b"]["staged"] for r in results)
+    say(f"[process_group] (b) build_64m at {n} ranks, each on its shard of "
+        f"phase 21's layout (files, loaded in "
+        f"{max(r['b']['load_s'] for r in results):.1f} s): every rank's "
+        f"columns, count and flag equal phase 21's shard bit for bit "
+        f"(digests); step {max(b_ms):.1f} ms (slowest rank's median of "
+        f"{PG_TIMED}: " + ", ".join(f"{[round(x, 1) for x in r['b']['ms']]}"
+                                    for r in results)
+        + f"; in process {engine21['build_ms']:.1f} ms); a step hands "
+        f"{wire} bytes to gloo ({wire / 1e9:.2f} GB over {n} ranks; "
+        f"{sum(r['b']['calls'] for r in results) // n} collectives a rank) and "
+        f"stages {staged / 1e9:.2f} GB through host memory; the held step "
+        f"spent {r0['b']['gloo_s']:.2f} s inside gloo's calls on rank 0; peak "
+        f"device memory a rank "
+        + ", ".join(f"{r['b']['peak_gib']:.2f}" for r in results)
+        + f" GiB; host memory a rank after the held step "
+        f"{fmt_gib(r0['b']['host'])} (rank 0), max RSS "
+        + ", ".join(f"{r['maxrss_gib']:.1f}" for r in results)
+        + f" GiB; host MemAvailable "
+        + (f"{avail[0]:.1f} GiB before the spawn, at least {min(avail):.1f} "
+           f"GiB while the ranks ran ({len(avail)} samples)"
+           if None not in avail else "not measured")
+        + f"; predicted step {PG_PREDICTED['build_ms']} ms")
+    say(f"[process_group] (c) compressed_psum_grads over the group on phase "
+        f"16's {GNN_GRAD_TREE} gradient tree ({len(grads)} leaves, shard s "
+        f"rolled by s * {PG_ROLL}), two steps with the residual fed back: "
+        f"each rank's mean and residual equal the in-process result at {n} "
+        f"shards on the card bit for bit")
+    for r in results:
+        for name in ("sorted_member_mask", "expand_join_gather"):
+            if r["launches"][name] == 0:
+                fail(f"process_group: rank {r['rank']} never launched {name}")
+    counts = {name: sum(r["launches"][name] for r in results)
+              for name in KERNELS}
+    phase_s = time.perf_counter() - t_phase
+    say(f"[process_group] kernel launches in the ranks "
+        + ", ".join(f"{r['launches']}" for r in results)
+        + f"; phase {phase_s:.1f} s (predicted {PG_PREDICTED['phase_s']} s)")
+    return counts
 
 
 # ---------------------------------------------------------------------- #
@@ -3632,6 +4025,9 @@ def main() -> int:
     # from it and keeps driving the donor, so the donor lives until then
     ckpt_root = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_root, ignore_errors=True)
+    # what phases 13, 16 and 21 leave for phase 23's ranks
+    pg_root = Path(tempfile.mkdtemp(prefix="chip_smoke_pg_"))
+    atexit.register(shutil.rmtree, pg_root, True)
     svc_dir = str(ckpt_root / "service")
     t0 = time.perf_counter()
     step0 = wsvc.checkpoint(svc_dir)
@@ -3998,9 +4394,19 @@ def main() -> int:
     mesh = make_mesh(SHARDS)
     sh_engine = Engine(index, mesh=mesh)
     sh_ms = {}
+    # each call's answers and the ladder telemetry after it: phase 23's
+    # ranks make the same calls
+    sh13 = {"answers": [], "trail": []}
+
+    def sh_mark(rows_list):
+        t = sh_engine.telemetry
+        sh13["trail"].append((t.dispatches, t.retry_rungs, t.default_jumps))
+        sh13["answers"].extend(digest(r) for r in rows_list)
+
     for name in TEMPLATES:
         for q, exp in per_template[name]:  # first pass: captures
             got = sh_engine.execute(q)
+            sh_mark([got])
             if not np.array_equal(got, exp) \
                     or not np.array_equal(got, engine.execute(q)):
                 fail(f"sharded {name} {q!r}: answer differs from the local "
@@ -4010,6 +4416,7 @@ def main() -> int:
             t0 = time.perf_counter()
             got = sh_engine.execute(q)
             lat.append(time.perf_counter() - t0)
+            sh_mark([got])
             if not np.array_equal(got, exp):
                 fail(f"sharded {name} {q!r}: a second execute differs")
         sh_ms[name] = 1e3 * float(np.median(lat))
@@ -4023,6 +4430,7 @@ def main() -> int:
     t0 = time.perf_counter()
     batch = sh_engine.execute_batch([q for q, _ in accepted])
     t_batch = time.perf_counter() - t0
+    sh_mark(batch)
     for (q, exp), got in zip(accepted, batch):
         if not np.array_equal(got, exp):
             fail(f"sharded batch: {q!r} differs from the reference")
@@ -4032,6 +4440,11 @@ def main() -> int:
             sh_engine.plan(d[0]))[:, 1].max(initial=0))))
     rungs_before = sh_engine.telemetry.retry_rungs
     got = sh_engine.execute(retry_q, caps=QueryCaps(2, 2, 4))
+    sh_mark([got])
+    sh13.update(telemetry=sh_engine.telemetry.snapshot(), ms=sh_ms)
+    pg_job = {"draws": [(name, [q for q, _ in per_template[name]])
+                        for name in TEMPLATES],
+              "batch": [q for q, _ in accepted], "retry": retry_q}
     climbed = sh_engine.telemetry.retry_rungs - rungs_before
     if not np.array_equal(got, retry_exp) or climbed == 0:
         fail(f"sharded overflow retry: {retry_q!r} climbed {climbed} rungs "
@@ -4041,8 +4454,7 @@ def main() -> int:
         f"({len(retry_exp)} pairs) climbed {climbed} rungs to the exact "
         f"answer; telemetry {sh_engine.telemetry}")
     say(cache_line(f"sharded engine ({SHARDS} shards)", sh_engine))
-    sh_dir = str(ckpt_root / "sharded")
-    ckpt_root.mkdir(parents=True, exist_ok=True)
+    sh_dir = str(pg_root / "sharded")  # kept for phase 23's ranks
     t0 = time.perf_counter()
     sh_engine.backend.save(sh_dir)
     t_shsave = time.perf_counter() - t0
@@ -4081,6 +4493,8 @@ def main() -> int:
         f"sharded (shard_index, {SHARDS}-shard engine, batch, retry, restore)",
         ("sorted_member_mask", "expand_join_gather"))
     del sh_engine, two_engine, two, live, gathered
+    shutil.move(idx_dir, pg_root / "index")  # phase 12's save, for phase 23
+    pg_job.update(index_dir=str(pg_root / "index"), sharded_dir=sh_dir)
     shutil.rmtree(ckpt_root)
     torch.cuda.empty_cache()
 
@@ -4160,7 +4574,8 @@ def main() -> int:
     # reference.
     for name, phase in (("lm_train", lm_train_phase),
                         ("recsys_train", recsys_train_phase),
-                        ("engine", engine_phase)):
+                        ("engine", lambda d: engine_phase(
+                            d, pg_root / "engine"))):
         torch.cuda.empty_cache()
         zero_counts()
         measured[name] = phase(dev)
@@ -4179,8 +4594,25 @@ def main() -> int:
     if any(path_counts["reckon"].values()):
         fail(f"the reckon path launched {path_counts['reckon']}; its kernel "
              "set is empty")
+
+    # ---- 23. process_group: one process a shard, four ranks on the card - #
+    # Its kernels run in the ranks, which report their launches; the
+    # parent's counts are set to 0 too (its in-process compress reference
+    # is torch ops).
+    torch.cuda.empty_cache()
+    zero_counts()
+    ranks = process_group_phase(
+        dev, kind, dict(pg_job, engine_dir=str(pg_root / "engine"),
+                        grads_file=str(pg_root / "grads.pt")),
+        sh13, measured["engine"], measured["gnn"]["grads"])
+    path_counts["process_group"] = {
+        name: mod.launches + ranks[name] for name, mod in counters.items()}
+    say(f"[process_group (ranks' launches summed)] kernel launches "
+        f"{path_counts['process_group']} "
+        f"({time.perf_counter() - t_start:.1f} s into the run)")
     del measured
     shutil.rmtree(ckpt_root, ignore_errors=True)
+    shutil.rmtree(pg_root, ignore_errors=True)
     for name, fn in real.items():
         setattr(ops, name, fn)
     counts = {name: sum(c[name] for c in path_counts.values()) for name in KERNELS}

@@ -158,7 +158,7 @@ def _from_native(arr: np.ndarray, dtype_name: str):
         np_view, t_view = _SIGNED[_RAW_VIEW[dtype_name]]
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np_view).copy())
         return t.view(t_view).view(getattr(torch, dtype_name))
-    return arr.astype(dtype_name)
+    return arr.astype(dtype_name, copy=False)
 
 
 def _step_dir(ckpt_dir: str, step: int) -> str:
@@ -333,7 +333,7 @@ def load_checkpoint(ckpt_dir: str, step: int, like: Any) -> Any:
 
 
 def load_checkpoint_items(
-        ckpt_dir: str, step: Optional[int] = None,
+        ckpt_dir: str, step: Optional[int] = None, mmap: bool = False,
 ) -> tuple[dict, Optional[dict], int]:
     """Dynamic loader: ``(items, extra, step)`` with no like-tree.
 
@@ -341,7 +341,9 @@ def load_checkpoint_items(
     to host arrays at their *checkpointed* shapes (numpy arrays, torch
     tensors for bfloat16 / float8) — the reader decides what to do with
     them.  This is what a fresh process uses: it has no live tree whose
-    capacities match the checkpoint's."""
+    capacities match the checkpoint's.  With ``mmap`` the leaves numpy
+    holds at their own dtype are read-only memory maps of their files, so
+    a reader that takes some rows reads only those."""
     wait_for_writes()
     if step is None:
         step = latest_step(ckpt_dir)
@@ -353,7 +355,9 @@ def load_checkpoint_items(
         manifest = json.load(f)
     items = {}
     for e in manifest["leaves"]:
-        arr = _from_native(np.load(os.path.join(d, e["file"])), e["dtype"])
+        arr = _from_native(np.load(os.path.join(d, e["file"]),
+                                   mmap_mode="r" if mmap else None),
+                           e["dtype"])
         items[_norm_key(e["path"])] = arr
     return items, manifest.get("extra"), step
 

@@ -512,8 +512,10 @@ class CapturedBackend(ExecutionBackend):
     carry a batched (B, cap) result relation and its (B,) flags.
 
     ``executables`` is the :class:`ExecutableCache` on the card; it is
-    None on the CPU, unless a test sets a cache to check its bookkeeping.
-    Subclasses set ``device`` and ``executables`` and implement
+    None on the CPU, unless a test sets a cache to check its bookkeeping,
+    and for a walker whose collectives a graph cannot hold (a
+    ``distributed.make_process_mesh`` backend), which runs eagerly on the
+    card too.  Subclasses set ``device`` and ``executables`` and implement
     :meth:`run_batch_async`."""
 
     device: torch.device
@@ -524,10 +526,10 @@ class CapturedBackend(ExecutionBackend):
             self.executables.clear()
 
     def _launch(self, key, fn, host_inputs) -> tuple:
-        """``fn`` on the int32 host arrays: on the card always a replay of
-        the captured executable of ``key``; on the CPU one eager call (or
-        the entry of a cache a test set)."""
-        if self.device.type == "cuda" or self.executables is not None:
+        """``fn`` on the int32 host arrays: a replay of the captured
+        executable of ``key`` when the backend has a cache, else one eager
+        call."""
+        if self.executables is not None:
             return self.executables.run(key, fn, host_inputs)
         return fn(*(torch.as_tensor(np.asarray(h, np.int32), device=self.device)
                     for h in host_inputs))

@@ -18,12 +18,22 @@ The exchange
 The reference runs one program per device inside ``shard_map`` and moves
 rows with ``all_to_all``; its overflow flags are ``psum``-reduced and a
 shard knows itself by ``axis_index`` (``train/compress.py`` adds an
-``all_gather``).  Here those collectives sit
-behind :class:`InProcessExchange`: the n shards live on one device, the
-all-to-all is a transpose of the packed (n, n, bucket_cap) buckets, the
-reduction an ``any`` over the shard dimension, and a shard's index is
-its lane block.  A process-group exchange (``torch.distributed``) would
-implement the same three calls.
+``all_gather``).  Here those four collectives sit behind an exchange that
+the mesh carries (``mesh.exchange``; every operator reads it from there):
+
+* :class:`InProcessExchange` — all n shards live in this process's lanes
+  on one device: the all-to-all is a transpose of the packed (n, n,
+  bucket_cap) buckets, the reduction an ``any`` over the shard dimension,
+  and a shard's index is its lane block (:func:`make_mesh`);
+* :class:`ProcessGroupExchange` — one process a shard over a
+  ``torch.distributed`` group, each rank holding its own lanes
+  (:func:`make_process_mesh`).  Gloo only: every call stages its buffers
+  through host memory.
+
+An exchange carries ``n_shards`` (all shards: what ``mix32(key) % n``
+buckets by) and ``n_local`` (the shards whose lanes this process holds:
+``n_shards`` in process, 1 for a rank), so the same operators run on
+both.
 
 Operators: ``repartition`` (fixed-capacity bucket shuffle),
 ``sharded_join_local`` and :func:`make_distributed_join` (repartition by
@@ -47,9 +57,11 @@ graph, as in the local backend.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import backend as B
 from . import relational as R
@@ -57,7 +69,9 @@ from .executables import ExecutableCache
 from .index import resolve_device
 from .paths import _recap
 from .sharded_index import (
+    SHARDED_FIELDS,
     ShardedIndexArrays,
+    keep_shards,
     partition_rows,
     replicated_stats,
     shard_index,
@@ -73,18 +87,36 @@ I32 = R.I32
 
 @dataclasses.dataclass(frozen=True)
 class ShardMesh:
-    """``n_shards`` shards on one named axis, all on ``device`` — what the
+    """``n_shards`` shards on one named axis, on ``device`` — what the
     reference's one-axis device mesh is to its sharded engine.
     ``shape`` maps the axis name to the shard count, as a JAX mesh's
-    does."""
+    does.  ``exchange`` moves rows between the shards: an
+    :class:`InProcessExchange` (all shards in this process) unless the
+    mesh was made by :func:`make_process_mesh`."""
 
     n_shards: int
     axis: str
     device: torch.device
+    exchange: object = dataclasses.field(default=None, compare=False)
+
+    def __post_init__(self):
+        if self.exchange is None:
+            object.__setattr__(self, "exchange",
+                               InProcessExchange(self.n_shards))
 
     @property
     def shape(self) -> dict:
         return {self.axis: self.n_shards}
+
+    @property
+    def n_local(self) -> int:
+        """The shards whose lanes this process holds."""
+        return self.exchange.n_local
+
+    @property
+    def held(self) -> list:
+        """The ids of the shards this process holds, in lane order."""
+        return self.exchange.axis_index(self.n_local, "cpu").tolist()
 
 
 def make_mesh(n_shards: int, axis: str = "engine", device=None) -> ShardMesh:
@@ -95,13 +127,33 @@ def make_mesh(n_shards: int, axis: str = "engine", device=None) -> ShardMesh:
     return ShardMesh(int(n_shards), axis, resolve_device(device))
 
 
+def make_process_mesh(axis: str = "engine", group=None,
+                      device=None) -> ShardMesh:
+    """A mesh of one shard a process over the ``torch.distributed``
+    ``group`` (the default group when None): ``n_shards`` is the group's
+    size and this rank holds its own shard's lanes.  The rank runs on the
+    CUDA card unless ``device`` names another; with several cards rank r
+    takes card ``r % device_count`` (and makes it current)."""
+    if device is None:
+        resolve_device(None)  # raises without a card
+        device = torch.device("cuda", dist.get_rank(group)
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    exchange = ProcessGroupExchange(group)
+    return ShardMesh(exchange.n_shards, axis, resolve_device(device),
+                     exchange)
+
+
 class InProcessExchange:
     """The collectives of the sharded walker (and ``all_gather``), for
     ``n_shards`` shards folded into the lane dimension of tensors on one
     device (shard-major lanes: lane ``s * B + b``)."""
 
+    capturable = True  # plain tensor ops: a CUDA graph may hold them
+
     def __init__(self, n_shards: int):
         self.n_shards = n_shards
+        self.n_local = n_shards
 
     def axis_index(self, lanes: int, device) -> torch.Tensor:
         """(lanes,) the shard of each lane."""
@@ -127,6 +179,82 @@ class InProcessExchange:
     def any_shard(self, flags: torch.Tensor) -> torch.Tensor:
         """(n * B,) per-shard flags -> (B,) per query."""
         return flags.reshape(self.n_shards, -1).any(0)
+
+
+class ProcessGroupExchange:
+    """The same four calls with one process a shard: this rank's B lanes
+    against the other ranks' of a ``torch.distributed`` group.
+
+    Gloo only.  Every call copies its send buffer to host memory and the
+    received one back to the tensor's device, whatever the backend would
+    accept, and counts what it moved: ``calls``, ``wire_bytes`` (the send
+    buffers handed to the collectives) and ``staged_bytes`` (the host
+    copies, out and back).  Gloo's collectives cannot sit in a CUDA
+    graph (``capturable`` is False), so a walker over this exchange runs
+    eagerly.  ``seconds`` is the host time spent inside the gloo calls
+    (waiting for the other ranks included)."""
+
+    capturable = False
+
+    def __init__(self, group=None):
+        backend = dist.get_backend(group)
+        if backend != "gloo":
+            raise NotImplementedError(
+                f"a {backend!r} process group: the process-group exchange "
+                "runs over gloo only; NCCL is ROADMAP item 15(c)")
+        self.group = group
+        self.n_shards = dist.get_world_size(group)
+        self.n_local = 1
+        self.rank = dist.get_rank(group)
+        self.calls = self.wire_bytes = self.staged_bytes = 0
+        self.seconds = 0.0
+
+    def _stage(self, x: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``x`` (a copy even when ``x`` lies there)."""
+        self.calls += 1
+        self.wire_bytes += x.numel() * x.element_size()
+        self.staged_bytes += x.numel() * x.element_size()
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda)
+        return host.copy_(x)
+
+    def _unstage(self, host: torch.Tensor, device) -> torch.Tensor:
+        self.staged_bytes += host.numel() * host.element_size()
+        return host.to(device, copy=True)
+
+    def _run(self, collective, *args, **kwargs) -> None:
+        t0 = time.perf_counter()
+        collective(*args, group=self.group, **kwargs)
+        self.seconds += time.perf_counter() - t0
+
+    def axis_index(self, lanes: int, device) -> torch.Tensor:
+        """(lanes,) this rank, for every lane."""
+        return torch.full((lanes,), self.rank, dtype=torch.int64,
+                          device=device)
+
+    def all_to_all(self, blocks: torch.Tensor) -> torch.Tensor:
+        """Block ``d`` of rank ``s``'s lanes goes to rank ``d``, where it
+        is block ``s``: (B, n, ...) -> (B, n, ...)."""
+        send = self._stage(blocks.movedim(1, 0))  # (n, B, ...)
+        recv = torch.empty_like(send)
+        self._run(dist.all_to_all_single, recv, send)
+        return self._unstage(recv, blocks.device).movedim(0, 1)
+
+    def all_gather(self, blocks: torch.Tensor) -> torch.Tensor:
+        """Every rank receives every rank's block, rank ``d``'s as block
+        ``d``: (B, ...) -> (B, n, ...)."""
+        send = self._stage(blocks)
+        recv = send.new_empty((self.n_shards * send.shape[0],)
+                              + tuple(send.shape[1:]))
+        self._run(dist.all_gather_into_tensor, recv, send)
+        every = self._unstage(recv, blocks.device)
+        return every.reshape((self.n_shards,) + tuple(send.shape)).movedim(0, 1)
+
+    def any_shard(self, flags: torch.Tensor) -> torch.Tensor:
+        """(B,) this rank's flags -> (B,) any rank's (gloo reduces no
+        bool tensor: an int32 MAX)."""
+        send = self._stage(flags.to(torch.int32))
+        self._run(dist.all_reduce, send, op=dist.ReduceOp.MAX)
+        return self._unstage(send, flags.device).to(torch.bool)
 
 
 # ---------------------------------------------------------------------- #
@@ -187,9 +315,10 @@ def _flatten_received(received: tuple, counts: torch.Tensor) -> R.Relation:
 
 
 def repartition(cols: tuple, count: torch.Tensor, key_col: int, n_shards: int,
-                bucket_cap: int, exchange: InProcessExchange):
-    """Move every row to the shard owning hash(key).  Sharded lanes in and
-    out; returns (cols, count, overflow) at capacity n_shards*bucket_cap.
+                bucket_cap: int, exchange):
+    """Move every row to the shard owning hash(key) through ``exchange``.
+    Sharded lanes in and out; returns (cols, count, overflow) at capacity
+    n_shards*bucket_cap.
     A flag stays on the lane of the shard whose bucket overflowed."""
     valid = R.valid_mask(R.Relation(cols, count, None))
     bucket = _bucket_of(cols[key_col], n_shards)
@@ -224,12 +353,14 @@ def make_distributed_join(mesh: ShardMesh, axis: str, n_shards: int,
                           out_cap: int):
     """Factory: global (v,m,...) ⋈ (m,u,...) over one mesh axis.
 
-    Inputs are sharded relations: cols tuples of (n_shards, cap) tensors,
-    counts (n_shards,).  Hash-repartitions both sides on the join key,
-    joins locally, returns the sharded output cols, counts and per-shard
-    overflow.  This is Algorithm 1's level join at scale."""
+    Inputs are the shards this process holds (``mesh.n_local`` of them):
+    cols tuples of (n_local, cap) tensors, counts (n_local,).
+    Hash-repartitions both sides on the join key through
+    ``mesh.exchange``, joins locally, returns the held shards' output
+    cols, counts and per-shard overflow.  This is Algorithm 1's level
+    join at scale."""
     _check_axis(mesh, axis, n_shards)
-    exchange = InProcessExchange(n_shards)
+    exchange = mesh.exchange
 
     def join(ac, an, bc, bn):
         ac, an, ovf_a = repartition(tuple(ac), an, 1, n_shards, bucket_cap,
@@ -263,13 +394,16 @@ def make_distributed_query_step(mesh: ShardMesh, axis: str):
 
     Class intersection runs replicated (tiny — the paper's point);
     materialization runs sharded: each shard scans only its own slice of
-    I_c2p, so result rows are produced where they live (no shuffle)."""
-    n_shards = mesh.shape[axis]
+    I_c2p, so result rows are produced where they live (no shuffle).
+    The c2p inputs are the shards this process holds: (mesh.n_local,
+    cap) columns and (mesh.n_local,) counts."""
+    _check_axis(mesh, axis, mesh.n_shards)
+    n_local = mesh.n_local
 
     def step(ca, cb, c2p_cls, c2p_v, c2p_u, c2p_count):
-        ca = ca.expand(n_shards, -1)
-        cb = cb.expand(n_shards, -1)
-        no = torch.zeros(n_shards, dtype=torch.bool, device=ca.device)
+        ca = ca.expand(n_local, -1)
+        cb = cb.expand(n_local, -1)
+        no = torch.zeros(n_local, dtype=torch.bool, device=ca.device)
         ra = R.Relation((ca,), (ca != R.SENTINEL).sum(-1, dtype=I32), no)
         rb = R.Relation((cb,), (cb != R.SENTINEL).sum(-1, dtype=I32), no)
         inter = R.rel_intersect(ra, rb, 1)
@@ -316,21 +450,23 @@ class ShardedOps(B.PlanOps):
     *global* QueryCaps, so any answer the local engine can hold fits per
     shard too and the overflow ladder is shared.
 
-    Each shard's I_c2p columns are one flat array of the backend's shard
-    blocks, its CSR offsets shifted by its block's base, so the
-    ``expand_join`` kernel keeps 1-D build columns."""
+    ``view`` holds the shards of this process (``exchange.n_local`` of
+    them, in lane order), the lanes ``n_local`` blocks of B.  The held
+    shards' I_c2p columns are one flat array of their blocks, each CSR's
+    offsets shifted by its block's base, so the ``expand_join`` kernel
+    keeps 1-D build columns."""
 
     def __init__(self, view: ShardedIndexArrays, n_vertices: int,
-                 n_shards: int, axis: str):
+                 exchange, axis: str):
         self.l2c_cls = view.l2c_cls
-        self.class_starts = view.class_starts  # (n_shards, class_cap + 1)
+        self.class_starts = view.class_starts  # (n_local, class_cap + 1)
         self.c2p_v = view.c2p_v.reshape(-1)  # views: a refill shows here
         self.c2p_u = view.c2p_u.reshape(-1)
         self.class_cyclic = view.class_cyclic
         self.n_vertices = n_vertices
-        self.n_shards = n_shards
+        self.n_shards = exchange.n_shards
         self.axis = axis
-        self.exchange = InProcessExchange(n_shards)
+        self.exchange = exchange
         self._block = view.c2p_v.shape[1]
         self._csr = torch.empty(view.class_starts.numel(), dtype=I32,
                                 device=view.class_starts.device)
@@ -339,14 +475,15 @@ class ShardedOps(B.PlanOps):
     def refresh(self) -> None:
         """Recompute the shifted CSR from ``class_starts`` in place (after
         the backend refilled its leaves)."""
-        base = torch.arange(self.n_shards, dtype=I32,
+        base = torch.arange(self.exchange.n_local, dtype=I32,
                             device=self._csr.device)[:, None] * self._block
         self._csr.copy_((self.class_starts + base).reshape(-1))
 
     def class_extents(self, cids: torch.Tensor):
         width = self.class_starts.shape[1]
-        shard = self.exchange.axis_index(cids.shape[0], cids.device)
-        at = cids.clamp(0, width - 2).long() + (shard * width)[:, None]
+        lanes, n_local = cids.shape[0], self.exchange.n_local
+        block = torch.arange(lanes, device=cids.device) // (lanes // n_local)
+        at = cids.clamp(0, width - 2).long() + (block * width)[:, None]
         lo = self._csr[at]
         return lo, self._csr[at + 1] - lo
 
@@ -394,19 +531,25 @@ class ShardedOps(B.PlanOps):
         return pairs, self.exchange.any_shard(pairs.overflow)
 
 
-def gather_lanes(pairs: R.Relation, n_shards: int) -> R.Relation:
-    """Sharded (n_shards * B, cap) pair lanes -> (B, n_shards * cap) lanes,
-    each query's rows from every shard sorted by (v, u).  Canonical pair
-    rows are globally distinct, so this is the local engine's relation
-    row for row (padding is SENTINEL and sorts last)."""
-    lanes, cap = pairs.cols[0].shape
-    queries = lanes // n_shards
+def gather_lanes(pairs: R.Relation, exchange) -> R.Relation:
+    """Sharded (n_local * B, cap) pair lanes -> (B, n_shards * cap) lanes,
+    each query's rows from every shard sorted by (v, u): the held lane
+    blocks side by side when this process holds every shard, else every
+    rank's rows all-gathered.  Canonical pair rows are globally distinct,
+    so this is the local engine's relation row for row (padding is
+    SENTINEL and sorts last)."""
+    n_shards, n_local = exchange.n_shards, exchange.n_local
+    queries = pairs.cols[0].shape[0] // n_local
 
-    def join_shards(x):
-        return x.reshape(n_shards, queries, -1).transpose(0, 1).reshape(
-            queries, n_shards * cap)
+    def join_shards(x):  # (n_local * B, ...) -> (B, n_shards, ...) -> flat
+        if n_local == n_shards:
+            every = x.reshape((n_shards, queries) + x.shape[1:]).transpose(
+                0, 1)
+        else:
+            every = exchange.all_gather(x)
+        return every.reshape(queries, -1)
 
-    count = pairs.count.reshape(n_shards, queries).sum(0, dtype=I32)
+    count = join_shards(pairs.count).sum(-1, dtype=I32)
     rel = R.Relation(tuple(join_shards(c) for c in pairs.cols), count,
                      torch.zeros_like(count, dtype=torch.bool))
     return R.rel_sort(rel, num_keys=2)
@@ -418,18 +561,27 @@ class ShardedBackend(B.CapturedBackend):
     :class:`ShardedOps`, each query's answer gathered from the shards and
     sorted on the device.
 
-    On the card one captured graph per (plan shape, caps, lanes), in
-    :attr:`executables`; on the CPU the walker runs eagerly.  The graphs
-    read the backend's leaves by address: :meth:`reshard` refills them in
-    place while their shapes hold, and drops the graphs otherwise."""
+    ``sharded`` holds the shards of this process: all of them on an
+    in-process mesh, the rank's own (a leading dimension of 1) on a
+    :func:`make_process_mesh`.  Every rank then calls the engine with the
+    same queries, its flags are reduced over the group (the overflow
+    ladder climbs in lockstep) and each rank returns the whole answer.
+
+    On the card, over an in-process mesh, one captured graph per (plan
+    shape, caps, lanes), in :attr:`executables`; on the CPU the walker
+    runs eagerly.  The graphs read the backend's leaves by address:
+    :meth:`reshard` refills them in place while their shapes hold, and
+    drops the graphs otherwise.  Over a process mesh nothing is captured
+    (``executables`` is None): gloo's collectives cannot sit in a CUDA
+    graph, so the walker runs eagerly there, on the card too."""
 
     def __init__(self, sharded: ShardedIndexArrays, mesh: ShardMesh,
                  n_vertices: int, axis: str = "engine", k: int | None = None):
         n_mesh = int(dict(mesh.shape).get(axis, -1))
-        if sharded.n_shards != n_mesh:
+        if n_mesh != mesh.n_shards or sharded.n_shards != mesh.n_local:
             raise ValueError(
-                f"index sharded {sharded.n_shards}-way but mesh axis "
-                f"{axis!r} has {n_mesh} shards")
+                f"index holds {sharded.n_shards} shard(s) here but mesh axis "
+                f"{axis!r} has {n_mesh} shards, {mesh.n_local} held here")
         if sharded.device != mesh.device:
             raise ValueError(f"index shards lie on {sharded.device}, the mesh "
                              f"on {mesh.device}")
@@ -438,40 +590,55 @@ class ShardedBackend(B.CapturedBackend):
         self.axis = axis
         self.device = mesh.device
         self.n_vertices = n_vertices
-        self.n_shards = sharded.n_shards
+        self.n_shards = mesh.n_shards
         self.k = k
         self._stats = None  # lazy: see the `stats` property
-        self.ops = ShardedOps(sharded, n_vertices, self.n_shards, axis)
-        self.executables = (ExecutableCache(self.device)
-                            if self.device.type == "cuda" else None)
+        self.ops = ShardedOps(sharded, n_vertices, mesh.exchange, axis)
+        self.executables = (
+            ExecutableCache(self.device)
+            if self.device.type == "cuda" and mesh.exchange.capturable
+            else None)
 
     @property
     def stats(self):
         """The optimizer's statistics, reconstructed lazily from the
-        replicated leaves alone — equal to the local engine's (see
+        sharded layout — equal to the local engine's (see
         ``sharded_index.replicated_stats``).  None when ``k`` is unknown;
-        invalidated by ``reshard``."""
+        invalidated by ``reshard``.  Over a process mesh the first read
+        all-gathers the shards' leaves, so every rank reads it: each then
+        plans with the same statistics."""
         if self._stats is None and self.k is not None:
-            self._stats = replicated_stats(self.sharded, self.n_vertices,
-                                           self.k)
+            every = self.sharded
+            if self.mesh.n_local != self.n_shards:
+                every = every._replace(**{
+                    f: self.mesh.exchange.all_gather(getattr(every, f))
+                    .flatten(0, 1) for f in SHARDED_FIELDS})
+            self._stats = replicated_stats(every, self.n_vertices, self.k)
         return self._stats
 
     @classmethod
     def from_index(cls, index, mesh: ShardMesh, axis: str = "engine",
                    device=None) -> "ShardedBackend":
         """Shard ``index`` over the mesh axis, on the CUDA card unless
-        ``device`` names another (the mesh's device must be that one)."""
+        ``device`` names another (the mesh's device must be that one), and
+        keep the shards this process holds."""
         n_shards = int(dict(mesh.shape)[axis])
-        return cls(shard_index(index, n_shards, device=resolve_device(device)),
-                   mesh, index.n_vertices, axis=axis, k=index.k)
+        sharded = shard_index(index, n_shards, device=resolve_device(device))
+        return cls(keep_shards(sharded, mesh.held), mesh, index.n_vertices,
+                   axis=axis, k=index.k)
 
     # ---------------------- lifecycle (checkpoint) --------------------- #
 
     def save(self, ckpt_dir: str, step: int = 0) -> str:
         """Snapshot the per-shard leaves + layout metadata as one atomic
-        committed step (see :mod:`repro_torch.core.lifecycle`)."""
+        committed step (see :mod:`repro_torch.core.lifecycle`).  Only a
+        backend holding every shard saves."""
         from .lifecycle import save_sharded  # lazy: one-way dependency
 
+        if self.mesh.n_local != self.n_shards:
+            raise ValueError(f"this process holds {self.mesh.n_local} of "
+                             f"{self.n_shards} shards: save from a backend "
+                             "that holds them all")
         return save_sharded(self.sharded, self.n_vertices, self.k,
                             ckpt_dir, step)
 
@@ -480,7 +647,8 @@ class ShardedBackend(B.CapturedBackend):
                 axis: str = "engine", device=None) -> "ShardedBackend":
         """A live backend on ``mesh`` from a saved step, resharded
         (``gather_index`` -> ``shard_index``) when the mesh axis size
-        differs from the saved shard count."""
+        differs from the saved shard count.  On a process mesh a rank
+        reads only its own shard when the counts agree."""
         from .lifecycle import restore_sharded_backend
 
         return restore_sharded_backend(ckpt_dir, mesh, step, axis=axis,
@@ -494,7 +662,8 @@ class ShardedBackend(B.CapturedBackend):
         valid; otherwise, or when ``n_vertices`` (baked into IDENTITY)
         moves, the graphs are dropped.  The statistics view is invalidated
         with the arrays, as ``Engine.rebind`` does."""
-        new = shard_index(index, self.n_shards, device=self.device)
+        new = keep_shards(shard_index(index, self.n_shards,
+                                      device=self.device), self.mesh.held)
         self.k = index.k
         self._stats = None
         same = index.n_vertices == self.n_vertices and all(
@@ -507,18 +676,20 @@ class ShardedBackend(B.CapturedBackend):
         self.close()
         self.sharded = new
         self.n_vertices = index.n_vertices
-        self.ops = ShardedOps(new, self.n_vertices, self.n_shards, self.axis)
+        self.ops = ShardedOps(new, self.n_vertices, self.mesh.exchange,
+                              self.axis)
 
     def run_batch_async(self, shape, caps: B.QueryCaps, ranges: np.ndarray):
-        """Every lane of the batch on every shard in one walk (the
+        """Every lane of the batch on every held shard in one walk (the
         reference dispatches one ``shard_map`` a lane; lanes are
         independent, so the answers are the same)."""
-        ops, n_shards = self.ops, self.n_shards
+        ops, exchange = self.ops, self.mesh.exchange
 
         def walk(lookup_ranges):
-            folded = lookup_ranges.repeat(n_shards, 1, 1)  # replicated
+            # replicated: every held shard walks every lane
+            folded = lookup_ranges.repeat(exchange.n_local, 1, 1)
             pairs, overflow = B.run_plan_ops(ops, shape, caps, folded)
-            rel = gather_lanes(pairs, n_shards)
+            rel = gather_lanes(pairs, exchange)
             return rel.cols + (rel.count, overflow)
 
         ranges = np.asarray(ranges, np.int32)

@@ -122,7 +122,13 @@ class Engine:
     binds the single-device :class:`LocalBackend`; a mesh
     (:func:`repro_torch.core.distributed.make_mesh`, on the same device)
     binds a :class:`~repro_torch.core.distributed.ShardedBackend` that
-    shards the index over the mesh axis; ``cluster=n`` (an int, or a
+    shards the index over the mesh axis; a process mesh
+    (:func:`~repro_torch.core.distributed.make_process_mesh`, one process
+    a shard over gloo) binds one that keeps this rank's shard: every rank
+    then calls the engine with the same queries, climbs the overflow
+    ladder in lockstep and returns the whole answer, and nothing is
+    captured as a CUDA graph (gloo's collectives cannot be), so the
+    walker runs eagerly there; ``cluster=n`` (an int, or a
     :class:`~repro_torch.core.cluster.ClusterRuntime` on the engine's
     device, started on first use) binds a
     :class:`~repro_torch.core.cluster.ClusterBackend` serving off ``n``

@@ -252,24 +252,36 @@ def save_sharded(sharded, n_vertices: int, k: Optional[int],
 
 
 def load_sharded_arrays(ckpt_dir: str, step: Optional[int] = None,
-                        n_shards: Optional[int] = None, device=None):
+                        n_shards: Optional[int] = None, device=None,
+                        held=None):
     """Load checkpointed shard leaves, optionally RE-sharded to another
     count, on the CUDA card unless ``device`` names another.  Returns
     ``(ShardedIndexArrays, n_vertices, k)``.
 
     Same count: the saved leaves are placed verbatim.  Another count: the
     restore is ``gather_index`` followed by ``shard_index`` at the new
-    count, so the result is bit-identical to resharding the live index."""
-    from .sharded_index import ShardedIndexArrays, gather_index, shard_index
+    count, so the result is bit-identical to resharding the live index.
+    ``held`` (shard ids, in lane order) keeps only those shards' rows of
+    the sharded leaves; at the saved count only those rows are read."""
+    from .sharded_index import (SHARDED_FIELDS, ShardedIndexArrays,
+                                gather_index, keep_shards, shard_index)
 
     dev = resolve_device(device)
-    items, _, _ = load_checkpoint_items(ckpt_dir, _resolve_step(ckpt_dir, step))
+    items, _, _ = load_checkpoint_items(ckpt_dir, _resolve_step(ckpt_dir, step),
+                                        mmap=True)
     meta = np.asarray(items["sharded.meta"], np.int64)
     saved_shards, n_vertices, k = (int(x) for x in meta[:3])
-    sharded = ShardedIndexArrays(**{
-        f: torch.as_tensor(items[f"sharded.{f}"], device=dev)
-        for f in ShardedIndexArrays._fields})
-    if n_shards is None or n_shards == saved_shards:
+    same = n_shards is None or n_shards == saved_shards
+    rows = list(held) if same and held is not None else slice(None)
+
+    def leaf(f):
+        arr = items[f"sharded.{f}"]
+        return torch.as_tensor(np.array(arr[rows] if f in SHARDED_FIELDS
+                                        else arr), device=dev)
+
+    sharded = ShardedIndexArrays(**{f: leaf(f)
+                                    for f in ShardedIndexArrays._fields})
+    if same:
         return sharded, n_vertices, (None if k < 0 else k)
     gathered = gather_index(sharded)
     wrapper = CPQxIndex(
@@ -278,18 +290,20 @@ def load_sharded_arrays(ckpt_dir: str, step: Optional[int] = None,
         caps=FlushCaps(pair_cap=int(gathered.c2p_v.shape[0]),
                        l2c_cap=int(gathered.l2c_cls.shape[0]),
                        seq_cap=int(gathered.seq_table.shape[0])))
-    return (shard_index(wrapper, n_shards), n_vertices,
-            (None if k < 0 else k))
+    resharded = shard_index(wrapper, n_shards)
+    return (resharded if held is None else keep_shards(resharded, held),
+            n_vertices, (None if k < 0 else k))
 
 
 def restore_sharded_backend(ckpt_dir: str, mesh, step: Optional[int] = None,
                             axis: str = "engine", device=None):
     """``ShardedBackend.restore``: a live backend on ``mesh`` (on the CUDA
     card unless ``device`` names another), resharding the saved leaves if
-    the mesh axis size differs from the saved count."""
+    the mesh axis size differs from the saved count, holding the shards
+    this process holds (a rank reads only its own at the saved count)."""
     from .distributed import ShardedBackend
 
     n_shards = int(dict(mesh.shape)[axis])
     sharded, n_vertices, k = load_sharded_arrays(ckpt_dir, step, n_shards,
-                                                 device)
+                                                 device, held=mesh.held)
     return ShardedBackend(sharded, mesh, n_vertices, axis=axis, k=k)

@@ -81,6 +81,23 @@ class ShardedIndexArrays(NamedTuple):
         return self.c2p_v.device
 
 
+# the leaves with a leading (n_shards, ...) axis; the rest are replicated
+SHARDED_FIELDS = ("pair_v", "pair_u", "pair_cls", "pair_counts", "c2p_cls",
+                  "c2p_v", "c2p_u", "c2p_counts", "class_starts")
+
+
+def keep_shards(sharded: ShardedIndexArrays, held) -> ShardedIndexArrays:
+    """The layout of the shards ``held`` (ids in lane order): each sharded
+    leaf cut to their rows (fresh tensors), the replicated leaves kept.
+    Every shard held in order is the layout itself."""
+    held = list(held)
+    if held == list(range(sharded.n_shards)):
+        return sharded
+    rows = torch.as_tensor(held, device=sharded.device)
+    return sharded._replace(**{f: getattr(sharded, f).index_select(0, rows)
+                               for f in SHARDED_FIELDS})
+
+
 # ---------------------------------------------------------------------- #
 # host-side hash partitioning (vectorized; must agree with the device)
 # ---------------------------------------------------------------------- #

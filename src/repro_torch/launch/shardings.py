@@ -1,0 +1,227 @@
+"""Logical-axis sharding rules -> per-leaf specs for a mesh (the twin of
+the reference's ``launch/shardings.py``).
+
+A spec is a tuple with one entry a tensor dim: None (replicated), an
+axis name, or a tuple of two or more names (that dim split over those
+axes, major to minor) — a ``PartitionSpec`` entry for entry, which also
+writes one axis as its name and none as None.  One rule table drives
+every architecture; each dimension is sharded over its logical axis only
+when the size divides the mesh axis (else replicated), so the same model
+lays out on the 16x16 pod, the 2x16x16 multi-pod and any smaller shape.
+
+Baseline layout (the reference's):
+  * batch        -> ("pod", "data")     [DP across pods and data axis]
+  * TP (heads, d_ff, vocab)   -> "model"
+  * FSDP (param d_model dims) -> "data"
+  * GNN nodes/edges, engine pair tables -> all axes flattened
+  * MoE experts  -> replicated, expert d_ff over "model"
+
+``mesh`` is a ``DeviceMesh`` or a plain ``(axis_names, shape)`` value
+(``launch.mesh.names_and_shape``); :func:`placements` turns a spec into
+DTensor placements and :func:`distribute` places a tensor by it.
+"""
+
+from __future__ import annotations
+
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+from ..train.optim import AdamWState
+from .mesh import axis_size, batch_axes, flat_axes, names_and_shape
+
+
+def _ok(size: int, mesh, axis) -> bool:
+    if axis is None:
+        return True
+    n = 1
+    for a in (axis if isinstance(axis, tuple) else (axis,)):
+        n *= axis_size(mesh, a)
+    return size % n == 0
+
+
+def _entry(axes):
+    """One spec entry: a tuple of one axis is its name, of none None."""
+    if isinstance(axes, tuple) and len(axes) < 2:
+        return axes[0] if axes else None
+    return axes
+
+
+def _spec(mesh, *dim_axis_pairs) -> tuple:
+    """A spec, dropping axes that don't divide."""
+    return tuple(_entry(axis) if (axis and _ok(size, mesh, axis)) else None
+                 for size, axis in dim_axis_pairs)
+
+
+def _copy(tree):
+    return {k: _copy(v) for k, v in tree.items()} if isinstance(tree, dict) \
+        else tree
+
+
+def placements(spec: tuple, mesh) -> list:
+    """The DTensor placements of ``spec``, one a mesh dim: ``Shard(d)``
+    where tensor dim ``d`` names the mesh dim's axis, else
+    ``Replicate()``.  Axes sharing one tensor dim must come in mesh order
+    (major to minor, as JAX takes them); out of order, or an axis named
+    twice, raises rather than reorders."""
+    names, _ = names_and_shape(mesh)
+    out = [Replicate() for _ in names]
+    taken: set = set()
+    for dim, entry in enumerate(spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        missing = [a for a in axes if a not in names]
+        if missing:
+            raise ValueError(f"spec {spec}: no mesh axis {missing} in {names}")
+        at = [names.index(a) for a in axes]
+        if at != sorted(at):
+            raise ValueError(f"spec {spec}: axes {axes} of dim {dim} are not "
+                             f"in mesh order {names}")
+        for i in at:
+            if i in taken:
+                raise ValueError(f"spec {spec}: axis {names[i]!r} named twice")
+            taken.add(i)
+            out[i] = Shard(dim)
+    return out
+
+
+def distribute(tensor, spec: tuple, mesh):
+    """``tensor`` as a DTensor over the ``DeviceMesh`` ``mesh``, laid out
+    by ``spec`` (every rank passes the same global tensor)."""
+    return distribute_tensor(tensor, mesh, placements(spec, mesh))
+
+
+# ---------------------------------------------------------------------- #
+# LM
+# ---------------------------------------------------------------------- #
+
+
+def lm_param_specs(cfg, mesh, fsdp: str | tuple | None = "data",
+                   embed_fsdp: bool = True) -> dict:
+    """Specs of the LM parameter tree (the reference's layout: stacked
+    layers).  ``embed_fsdp=False`` keeps the embedding's d_model dim
+    replicated."""
+    d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                       cfg.d_ff)
+    v, nl = cfg.padded_vocab, cfg.n_layers
+    m = "model"
+    efsdp = fsdp if embed_fsdp else None
+    layer = {
+        "attn_norm": (None, None),
+        "wq": _spec(mesh, (nl, None), (d, fsdp), (h * hd, m)),
+        "wk": _spec(mesh, (nl, None), (d, fsdp), (kv * hd, m)),
+        "wv": _spec(mesh, (nl, None), (d, fsdp), (kv * hd, m)),
+        "wo": _spec(mesh, (nl, None), (h * hd, m), (d, fsdp)),
+        "mlp_norm": (None, None),
+    }
+    if cfg.gemma_norms:
+        layer["post_attn_norm"] = (None, None)
+        layer["post_mlp_norm"] = (None, None)
+    if cfg.is_moe:
+        e = cfg.n_experts
+        layer["router"] = _spec(mesh, (nl, None), (d, fsdp), (e, None))
+        layer["w_gate"] = _spec(mesh, (nl, None), (e, None), (d, fsdp), (f, m))
+        layer["w_up"] = _spec(mesh, (nl, None), (e, None), (d, fsdp), (f, m))
+        layer["w_down"] = _spec(mesh, (nl, None), (e, None), (f, m), (d, fsdp))
+    else:
+        layer["w_gate"] = _spec(mesh, (nl, None), (d, fsdp), (f, m))
+        layer["w_up"] = _spec(mesh, (nl, None), (d, fsdp), (f, m))
+        layer["w_down"] = _spec(mesh, (nl, None), (f, m), (d, fsdp))
+    specs = {
+        "embed": _spec(mesh, (v, m), (d, efsdp)),
+        "final_norm": (None,),
+        "layers": layer,
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = _spec(mesh, (d, efsdp), (v, m))
+    return specs
+
+
+def lm_batch_spec(mesh) -> tuple:
+    return (_entry(batch_axes(mesh)), None)
+
+
+def lm_cache_specs(cfg, mesh) -> dict:
+    """KV cache (L, B, T, KV, hd): batch over the data axes; kv heads over
+    model when divisible, else the *time* axis over model."""
+    baxes = _entry(batch_axes(mesh))
+    if _ok(cfg.n_kv_heads, mesh, "model"):
+        spec = (None, baxes, None, "model", None)
+    else:
+        spec = (None, baxes, "model", None, None)
+    return {"k": spec, "v": spec}
+
+
+def lm_opt_specs(param_specs: dict) -> AdamWState:
+    """AdamW moments shard exactly like their params."""
+    return AdamWState(step=(), mu=_copy(param_specs), nu=_copy(param_specs))
+
+
+# ---------------------------------------------------------------------- #
+# GNN — nodes/edges flattened over every axis
+# ---------------------------------------------------------------------- #
+
+
+def gnn_batch_specs(mesh, n_nodes: int, n_edges: int) -> dict:
+    axes = _entry(flat_axes(mesh))
+    size = 1
+    for n in names_and_shape(mesh)[1]:
+        size *= n
+
+    def rowspec(n):
+        return (axes, None) if n % size == 0 else ()
+
+    def rowspec1(n):
+        return (axes,) if n % size == 0 else ()
+
+    return {
+        "node_feat": rowspec(n_nodes),
+        "edge_feat": rowspec(n_edges),
+        "senders": rowspec1(n_edges),
+        "receivers": rowspec1(n_edges),
+        "node_mask": rowspec1(n_nodes),
+        "edge_mask": rowspec1(n_edges),
+        "positions": rowspec(n_nodes),
+        "graph_ids": rowspec1(n_nodes),
+    }
+
+
+def gnn_param_specs(params, mesh) -> dict:
+    """GNN params are small: replicated.  ``params`` is the reference's
+    tree (``convert.gnn_params_to_numpy``)."""
+    if isinstance(params, dict):
+        return {k: gnn_param_specs(v, mesh) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(gnn_param_specs(v, mesh) for v in params)
+    return ()
+
+
+# ---------------------------------------------------------------------- #
+# recsys
+# ---------------------------------------------------------------------- #
+
+
+def bst_param_specs(cfg, mesh) -> dict:
+    """Embedding tables row-sharded over "model" (the big memory);
+    dense layers replicated."""
+    m = "model"
+    return {
+        "item_emb": _spec(mesh, (cfg.n_items, m), (cfg.embed_dim, None)),
+        "cat_emb": _spec(mesh, (cfg.n_cats, m), (cfg.embed_dim, None)),
+        "ctx_emb": _spec(mesh, (cfg.n_context, m), (cfg.embed_dim, None)),
+        "pos_emb": (None, None),
+        "blocks": {
+            k: (None,) * nd
+            for k, nd in [("wq", 3), ("wk", 3), ("wv", 3), ("wo", 3),
+                          ("ff1", 3), ("ff2", 3), ("ln1", 2), ("ln2", 2)]
+        },
+        "mlp": {k: (None, None) if k.startswith("w") else (None,)
+                for k in _bst_mlp_keys(cfg)},
+    }
+
+
+def _bst_mlp_keys(cfg):
+    n = len(cfg.mlp_dims) + 1
+    return [f"w{i}" for i in range(n)] + [f"b{i}" for i in range(n)]
+
+
+def bst_batch_spec(mesh) -> tuple:
+    return (_entry(batch_axes(mesh)),)

@@ -220,10 +220,12 @@ def bst_train_step(cfg: RS.BSTConfig, lr: float = 1e-3, device=None):
 def engine_build_step(spec, shape, mesh: D.ShardMesh):
     """``step(a0, a1, a2, an, b0, b1, b2, bn) -> (cols, counts,
     overflow)``: the distributed level join (v, m, x) ⋈ (m, u, y) of two
-    sharded arity-3 relations — columns (n_shards, cap), counts
-    (n_shards,) — over ``mesh`` at ``shape``'s caps: ``per = n_pairs //
-    n_shards`` rows a shard, exchange buckets of ``max(per // n_shards *
-    4, 1024)`` rows, ``4 * per`` output rows a shard."""
+    sharded arity-3 relations — the shards this process holds, columns
+    (mesh.n_local, cap), counts (mesh.n_local,) — over ``mesh`` at
+    ``shape``'s caps: ``per = n_pairs // n_shards`` rows a shard,
+    exchange buckets of ``max(per // n_shards * 4, 1024)`` rows, ``4 *
+    per`` output rows a shard.  The rows move through ``mesh.exchange``:
+    in process, or one process a shard (``make_process_mesh``)."""
     total = mesh.n_shards
     per = shape.dims["n_pairs"] // total
     join = D.make_distributed_join(mesh, mesh.axis, total, 3, 3,
@@ -240,7 +242,8 @@ def engine_build_step(spec, shape, mesh: D.ShardMesh):
 def engine_query_step(spec, shape, mesh: D.ShardMesh):
     """``step(ca, cb, c2p_cls, c2p_v, c2p_u, c2p_count) -> ((v, u),
     counts)``: the conjunction of two replicated class lists, then each
-    shard's slice of ``I_c2p`` filtered to the surviving classes."""
+    held shard's slice of ``I_c2p`` ((mesh.n_local, cap) columns)
+    filtered to the surviving classes."""
     query = D.make_distributed_query_step(mesh, mesh.axis)
 
     def step(ca, cb, c2p_cls, c2p_v, c2p_u, c2p_count):

@@ -10,10 +10,11 @@ arithmetic bit for bit, on the CPU and on the card: ``torch.round``
 rounds half to even as ``jnp.round`` does, and every division is the
 IEEE float32 quotient (``_over``).
 
-:func:`compressed_psum_grads` runs over a
-``core.distributed.InProcessExchange``: each leaf holds the gradients of
-the exchange's ``n`` shards folded into a leading dimension of ``n``, as
-the sharded engine folds shards into lanes.
+:func:`compressed_psum_grads` runs over the exchange of a
+``core.distributed`` mesh: each leaf holds the gradients of the shards
+this process holds folded into a leading dimension — all ``n`` over an
+``InProcessExchange``, as the sharded engine folds shards into lanes, one
+over a ``ProcessGroupExchange`` (one process a shard).
 """
 
 from __future__ import annotations
@@ -72,9 +73,11 @@ def quantize_with_feedback(g: torch.Tensor, residual: torch.Tensor):
 
 def compressed_psum_grads(grads, state: CompressState, exchange):
     """The int8 all-reduce of a gradient tree over ``exchange``'s shards
-    with error feedback.  Each leaf is ``(n, *shape)``: row ``s`` shard
-    ``s``'s gradient.  Returns (mean grads float32 — every row the same
-    mean —, new state).
+    with error feedback.  Each leaf is ``(n_local, *shape)``: row ``s``
+    the gradient of the ``s``-th shard this process holds (every shard
+    over an ``InProcessExchange``, this rank's alone over a
+    ``ProcessGroupExchange``).  Returns (mean grads float32 — every row
+    the same mean —, new state).
 
     Per shard, as in the reference:
       1. quantize(g + residual) — int8 blocks and float32 block scales;
@@ -85,34 +88,35 @@ def compressed_psum_grads(grads, state: CompressState, exchange):
       4. re-quantize the reduced slice, all_gather int8 and scales.
 
     :func:`wire_bytes` counts what the two legs carry."""
-    n_dev = exchange.n_shards
+    n_dev, n_local = exchange.n_shards, exchange.n_local
 
     def shard_quantize(g, r):
-        per = [quantize_with_feedback(g[s], r[s]) for s in range(n_dev)]
-        q = torch.stack([p[0][0] for p in per])  # (n, nb, BLOCK)
-        scale = torch.stack([p[0][1] for p in per])  # (n, nb, 1)
+        per = [quantize_with_feedback(g[s], r[s]) for s in range(n_local)]
+        q = torch.stack([p[0][0] for p in per])  # (n_local, nb, BLOCK)
+        scale = torch.stack([p[0][1] for p in per])  # (n_local, nb, 1)
         return q, scale, per[0][0][2], torch.stack([p[1] for p in per])
 
     def one(g, r):
         q, scale, numel, new_r = shard_quantize(g, r)
         pad = (-q.shape[1]) % n_dev
         if pad:
-            q = torch.cat([q, q.new_zeros((n_dev, pad, BLOCK))], 1)
-            scale = torch.cat([scale, scale.new_ones((n_dev, pad, 1))], 1)
+            q = torch.cat([q, q.new_zeros((n_local, pad, BLOCK))], 1)
+            scale = torch.cat([scale, scale.new_ones((n_local, pad, 1))], 1)
         m = q.shape[1] // n_dev
-        # 2. reduce-scatter leg: int8 on the wire; (n, n peers, m, ...)
-        q_rs = exchange.all_to_all(q.reshape(n_dev, n_dev, m, BLOCK))
-        s_rs = exchange.all_to_all(scale.reshape(n_dev, n_dev, m, 1))
+        # 2. reduce-scatter leg: int8 on the wire; (n_local, n peers, m, ...)
+        q_rs = exchange.all_to_all(q.reshape(n_local, n_dev, m, BLOCK))
+        s_rs = exchange.all_to_all(scale.reshape(n_local, n_dev, m, 1))
         # 3. exact per-peer dequantized reduction of each shard's slice
-        part = torch.sum(q_rs.to(torch.float32) * s_rs, dim=1)  # (n, m, B)
+        part = torch.sum(q_rs.to(torch.float32) * s_rs, dim=1)  # (n_local, m, B)
         # 4. re-quantize the reduced slice; all_gather int8
         s_out = _over(torch.amax(torch.abs(part), dim=2, keepdim=True),
                       127.0) + 1e-12
         q_out = torch.clamp(torch.round(part / s_out), -127, 127).to(
             torch.int8)
-        q_full = exchange.all_gather(q_out).reshape(n_dev, n_dev * m, BLOCK)
-        s_full = exchange.all_gather(s_out).reshape(n_dev, n_dev * m, 1)
-        total = (q_full.to(torch.float32) * s_full).reshape(n_dev, -1)[:, :numel]
+        q_full = exchange.all_gather(q_out).reshape(n_local, n_dev * m, BLOCK)
+        s_full = exchange.all_gather(s_out).reshape(n_local, n_dev * m, 1)
+        total = (q_full.to(torch.float32) * s_full).reshape(
+            n_local, -1)[:, :numel]
         return _over(total, n_dev).reshape(g.shape), new_r
 
     pairs = [one(g, r) for g, r in zip(tree_leaves(grads),

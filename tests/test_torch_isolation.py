@@ -80,7 +80,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "repro_torch.configs.cpqx_engine", "repro_torch.train.compress",
               "repro_torch.launch.dryrun", "repro_torch.roofline",
               "repro_torch.roofline.op_cost", "repro_torch.roofline.collect",
-              "repro_torch.roofline.analysis"):
+              "repro_torch.roofline.analysis", "repro_torch.launch.mesh",
+              "repro_torch.launch.shardings", "repro_torch.launch.ranks"):
         assert m in mods
 
 
@@ -111,6 +112,57 @@ def test_a_worker_process_imports_neither_jax_nor_the_jax_package():
                          text=True, env=env, cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "['ok', 'ok'] []"
+
+
+def _rank_modules(rank, world):
+    """A rank's work on a process mesh — a sharded engine's answer and a
+    compressed all-reduce — then the jax and repro modules it holds."""
+    import sys
+
+    from repro_torch.core.distributed import make_process_mesh
+    from repro_torch.train import compress
+
+    torch.set_num_threads(1)
+    mesh = make_process_mesh(device="cpu")
+    g = example_graph()
+    engine = Engine(tindex.build(g, 2, device="cpu"), mesh=mesh, device="cpu")
+    from repro_torch.core.query import parse
+
+    rows = engine.execute(parse("l0 . l1", None, g.n_labels))
+    grads = {"w": torch.ones(1, 300)}
+    compress.compressed_psum_grads(grads, compress.compress_init(grads),
+                                   mesh.exchange)
+    return len(rows), sorted(
+        m for m in sys.modules if m == "jax" or m.startswith("jax.")
+        or m == "jaxlib" or m == "repro" or m.startswith("repro.")
+        or m == "ml_dtypes" or m.startswith("ml_dtypes."))
+
+
+def test_a_spawned_rank_imports_neither_jax_nor_the_jax_package():
+    """Two spawned gloo ranks serve a query on a process mesh and
+    all-reduce a gradient, and hold no jax or repro module."""
+    from repro_torch.launch.ranks import run_ranks
+
+    out = run_ranks(_rank_modules, 2, timeout=180, init_timeout=120)
+    assert out[0] == out[1] and out[0][0] > 0 and out[0][1] == []
+
+
+def test_process_mesh_refuses_no_card_and_other_backends(monkeypatch):
+    """``make_process_mesh()`` raises without a card before it touches a
+    process group, and the exchange refuses any backend but gloo, naming
+    the roadmap item that holds NCCL."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed.make_process_mesh()
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+    for call in (lambda: distributed.ProcessGroupExchange(),
+                 lambda: distributed.make_process_mesh(device="cpu")):
+        with pytest.raises(NotImplementedError, match=r"15\(c\)"):
+            call()
 
 
 def test_no_jax_or_repro_imports_in_the_source():
