@@ -32,7 +32,8 @@ Phases, each printed on its own lines:
                  through an eager engine give the same-run yardstick;
 6. iacpqx      — iaCPQx of the same graph over six seeded 2-sequences, and the
                  same queries through it;
-7. maintenance — the lazily maintained host mirror of CPQx: one round of
+7. maintenance — the lazily maintained host mirror of CPQx of
+                 gmark_citation(10 000) (MAINT_VERTICES): one round of
                  100 mixed updates, applied, flushed to the card and
                  rebound (the old backend's graphs dropped), its answers
                  checked, beside a full rebuild; then one interest round on an
@@ -89,7 +90,7 @@ Phases, each printed on its own lines:
                  gnn_steps with peak memory and the device-busy share; then
                  the CPQx-features driver (launch.gnn_features) on the card;
 17. lm         — the five LM configs at full width in bfloat16 at a cut
-                 depth (LM_DEPTH: 4 layers, grok-1 4 of its 64),
+                 depth (LM_DEPTH: 2 layers, grok-1 2 of its 64),
                  parameters drawn on the card: a continuous-
                  batching Server (4 slots, 8 requests of 16 prompt and 16 new
                  tokens) held request by request to a one-slot Server, up to
@@ -142,11 +143,24 @@ Phases, each printed on its own lines:
                  compressed_psum_grads over the group on phase 16's
                  GatedGCN gradients, equal to the in-process result bit for
                  bit;
+24. mesh_train — the sharded LM train step on DTensors, in phase 23's four
+                 ranks after (c): gemma2-2b at full width (d_model 2 304,
+                 vocab 256 000), 2 layers, float32, laid out by
+                 launch.shardings.lm_layout on a (1, 2, 2) ("pod", "data",
+                 "model") DeviceMesh over the gloo group, every collective
+                 staged through host memory (launch.mesh.
+                 HostStagedCollectives); two lm_train_steps at lr 1e-5 on
+                 one seeded 4 x 512 batch; each rank's losses, grad norms
+                 and shards of the first step's parameters held to the
+                 unsharded step on the card (run first, in the
+                 parent), each rank's step peak to the cell reckoned over
+                 a fake 4-rank group (RECKON_BAND);
    then the kernels again, on the built index's own arrays and on the inputs
    the paths gave them, with their times.
 
-Each path (phases 4-5, 6, 7, 8's two services, 9 to 23) is driven with the
-launch counts set to 0 just before it and read just after; a path that never
+Each path (phases 4-5, 6, 7, 8's two services, 9 to 24) is driven with the
+launch counts set to 0 just before it and read just after (phase 24: its
+parent half, then in each rank just before its half); a path that never
 launched one of its kernels fails.  The GNN models' kernel set is empty
 (their substrate op is index_add, and no architecture calls edge_softmax):
 phase 16 fails if they launch any; the features driver's CPQx build must
@@ -155,7 +169,8 @@ too (attention, MoE dispatch and EmbeddingBag are einsums, a stable sort
 and index_add, as they are XLA ops in the reference): phases 17 and 18
 fail if any of the four kernels launches, and so do phases 19-22 (the
 train steps' autograd; the engine cells' relational.py operators; the
-meta traces and the compress check's torch ops).  A graph replay adds the launches its
+meta traces and the compress check's torch ops), and 24 (the sharded LM
+step's DTensor ops and autograd, in the parent and in every rank).  A graph replay adds the launches its
 capture recorded, so the counts are the kernels that ran.  The cluster's
 kernels run in its worker processes, which report their launches at each
 CHECKPOINT barrier; phase 15 sums those reports, and phase 23 sums its
@@ -181,7 +196,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N_VERTICES = 20_000
-MAINT_VERTICES = 20_000  # the maintenance phase's graph (the host mirror's size)
+# the maintenance phase's graph (the host mirror's size): 20 000 vertices
+# until PR 22, cut to 10 000 in PR 23 for phase 24's time (the pure-Python
+# mirrors' builds took ~140 s of the run at 20 000)
+MAINT_VERTICES = 10_000
 MAINT_ROUNDS = 1  # was 3, then 2; cut to keep the script to its time limit
 MAINT_OPS = 100
 N_INTERESTS = 6
@@ -1506,8 +1524,11 @@ LM_ARCHS = ("gemma2-2b", "minicpm-2b", "mistral-nemo-12b",
 # bfloat16; the others are cut (from full depth, then 8-10 layers; PERF.md
 # §4) so that the script, with the training, engine and reckoning phases,
 # keeps to its time limit
-LM_DEPTH = {"gemma2-2b": 4, "minicpm-2b": 4, "mistral-nemo-12b": 4,
-            "granite-moe-3b-a800m": 4, "grok-1-314b": 4}
+# 2 layers since PR 23 (4 in PRs 21-22, 8-10 before): phase 24's time
+# comes out of this path's depth; every check still runs (gemma2-2b's two
+# layers are one local and one global)
+LM_DEPTH = {"gemma2-2b": 2, "minicpm-2b": 2, "mistral-nemo-12b": 2,
+            "granite-moe-3b-a800m": 2, "grok-1-314b": 2}
 LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 8, 16, 16, 64
 # card vs CPU in float32 at full width, 2 layers
 LM_CPU_ARCHS = ("gemma2-2b", "minicpm-2b", "granite-moe-3b-a800m")
@@ -2167,9 +2188,11 @@ LM_TRAIN_BUDGET_GIB = 60
 LM_TRAIN_PROBE_DEPTHS = (2, 4)
 LM_TRAIN_PROBE_ACCUM = 3  # microbatches of those two traces (at most)
 # card vs CPU and remat on vs off: float32, full width, 2 layers, the
-# chunked attention (q_chunk 128 at seq 256) that train_4k runs
+# chunked attention (q_chunk 64 at seq 128; 128 at 256 until PR 23, cut
+# for phase 24's time: the CPU's step is most of the check) that train_4k
+# runs
 LM_TRAIN_CHECK = ("gemma2-2b", "granite-moe-3b-a800m")
-LM_TRAIN_CHECK_SHAPE = (2, 256, 2, 128)  # global batch, seq, accum, q_chunk
+LM_TRAIN_CHECK_SHAPE = (2, 128, 2, 64)  # global batch, seq, accum, q_chunk
 LM_TRAIN_TOL = 1e-4  # card vs CPU: loss, grad norm, moments, updated leaves
 LM_REMAT_TOL = 1e-5  # remat on vs off on the card: loss and gradients
 # |g| past which AdamW's first step lr * g / (|g| + eps) is well
@@ -3211,6 +3234,19 @@ def pg_rank(rank: int, world: int, job: dict) -> dict:
         steps.append({k: (digest(mean[k][0]), digest(state.residual[k][0]))
                       for k in sorted(g)})
     out["c"] = steps
+
+    # (d) phase 24: the sharded LM train step, its launch counts from 0
+    if job.get("mesh_train"):
+        mods = {"sorted_member_mask": sorted_intersect,
+                "expand_join_gather": expand_join,
+                "fingerprint_rows": fingerprint,
+                "segment_softmax": segment_softmax}
+        for mod in mods.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        out["d"] = mesh_train_rank(rank, job, dev)
+        out["d"]["launches"] = {k: m.launches for k, m in mods.items()}
+        out["d"]["s"] = time.perf_counter() - t0
     out["maxrss_gib"] = resource.getrusage(
         resource.RUSAGE_SELF).ru_maxrss / 2**20
     out["s"] = time.perf_counter() - t_rank
@@ -3218,7 +3254,7 @@ def pg_rank(rank: int, world: int, job: dict) -> dict:
 
 
 def process_group_phase(dev, kind: str, job: dict, sh13: dict,
-                        engine21: dict, grads: dict) -> dict:
+                        engine21: dict, grads: dict) -> tuple:
     """Phase 23: ``PG_RANKS`` gloo ranks spawned once (``launch.ranks``:
     a ``FileStore`` in a temporary directory, every wait bounded, every
     rank killed on the way out), each on the card through
@@ -3233,7 +3269,9 @@ def process_group_phase(dev, kind: str, job: dict, sh13: dict,
     over the group on phase 16's GatedGCN gradient tree (shard s's leaves
     rolled by s * PG_ROLL): each rank's mean and residual equal the
     in-process result at ``PG_RANKS`` shards on the card bit for bit.
-    Returns the kernel launches the ranks made."""
+    With ``job["mesh_train"]`` (``mesh_train_prepare``'s record) the ranks
+    then run phase 24 (``mesh_train_rank``).  Returns the kernel launches
+    the ranks made in phase 23, and their results."""
     import torch
     from repro_torch.core.distributed import InProcessExchange
     from repro_torch.launch.ranks import run_ranks
@@ -3371,8 +3409,312 @@ def process_group_phase(dev, kind: str, job: dict, sh13: dict,
     phase_s = time.perf_counter() - t_phase
     say(f"[process_group] kernel launches in the ranks "
         + ", ".join(f"{r['launches']}" for r in results)
-        + f"; phase {phase_s:.1f} s (predicted {PG_PREDICTED['phase_s']} s)")
-    return counts
+        + f"; phase {phase_s:.1f} s (predicted {PG_PREDICTED['phase_s']} s"
+        + (f"; phase 24's part of it in the ranks "
+           f"{max(r['d']['s'] for r in results):.1f} s)" if "d" in results[0]
+           else ")"))
+    return counts, results
+
+
+# ---------------------------------------------------------------------- #
+# 24. mesh_train: the sharded LM train step on DTensors, in phase 23's ranks
+# ---------------------------------------------------------------------- #
+
+MT_ARCH = "gemma2-2b"  # at full width (d_model 2 304, vocab 256 000)
+MT_LAYERS = 2
+MT_MESH = ((1, 2, 2), ("pod", "data", "model"))  # over phase 23's 4 ranks
+MT_BATCH = (4, 512)  # sequences x tokens, one seeded batch
+MT_LR = 1e-5
+MT_STEPS = 2
+MT_TOL = 1e-4  # each rank vs the unsharded step on the card
+# written before the first chip run of this phase (PERF.md §6, PR 23):
+# step ms at 4 ranks, host-staged collective GB a step a rank, peak GiB a
+# rank, the phase's seconds
+MT_PREDICTED = {"step_ms": (2_000, 8_000), "coll_gb": (5.0, 5.2),
+                "peak_gib": (7.4, 8.2), "phase_s": (45, 90)}
+
+
+def mt_config():
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(MT_ARCH).config, n_layers=MT_LAYERS,
+                               param_dtype="float32")
+
+
+def _flat_tree(tree, prefix=""):
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _flat_tree(tree[key], f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", tree[key]
+
+
+def _nested(flat: dict) -> dict:
+    out: dict = {}
+    for path, value in flat.items():
+        node = out
+        *parents, leaf = path.split(".")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return out
+
+
+def mesh_train_prepare(dev, root: Path) -> dict:
+    """Phase 24's parent half: the seeded parameters of ``mt_config()``
+    (drawn on the card, written as the reference's tree of host arrays),
+    one seeded batch, the unsharded ``lm_train_step`` on the card (its
+    losses, grad norms, and after the first step every parameter and
+    where its gradient is at least ``STEP_DETERMINED``, written for the
+    ranks to hold theirs to), and the same cell
+    reckoned over a fake 4-rank group on the meta device (the peak each
+    rank's step may reach)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.mesh import reckoning_mesh
+    from repro_torch.launch.steps import build_cell, lm_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.roofline.collect import analyze_step
+    from repro_torch.train.optim import adamw_init
+
+    t0 = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    cfg = mt_config()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           dev)
+    for path, arr in _flat_tree(convert.lm_params_to_numpy(cfg, params)):
+        np.save(root / f"p.{path}.npy", arr)
+    toks, labels = TokenStream(cfg.vocab_size, *MT_BATCH, SEED).batch_at(0)
+    np.save(root / "tokens.npy", toks)
+    np.save(root / "labels.npy", labels)
+    opt = adamw_init(dict(params.named_parameters()))
+    step = lm_train_step(cfg, 1, lr=MT_LR, device=dev)
+    t, lab = torch.from_numpy(toks).to(dev), torch.from_numpy(labels).to(dev)
+    losses, norms = [], []
+    for i in range(MT_STEPS):
+        params, opt, m = step(params, opt, t, lab)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i == 0:  # the first step's leaves, where |g| >= STEP_DETERMINED
+            scales = {}  # and each leaf's largest value
+            for name, p in params.named_parameters():
+                np.save(root / f"s1.{name}.npy", p.detach().cpu().numpy())
+                np.save(root / f"sure1.{name}.npy", (
+                    opt.mu[name].abs() / 0.1 >= STEP_DETERMINED).cpu().numpy())
+                scales[name] = max(float(p.detach().abs().max()), 1e-30)
+    del params, opt, step, t, lab, m
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec = get_arch(MT_ARCH)
+    with reckoning_mesh(*MT_MESH) as mesh:
+        rec = analyze_step(build_cell(
+            spec, spec.shape("train_4k"), "meta", mesh=mesh,
+            n_layers=MT_LAYERS, param_dtype="float32",
+            global_batch=MT_BATCH[0], seq_len=MT_BATCH[1], accum=1),
+            in_place_backward=False)  # the ranks' step runs under a mode
+    return {"dir": str(root), "losses": losses, "grad_norms": norms,
+            "scales": scales,
+            "reckoned_gib": rec["per_device_hbm_bytes"] / 2**30,
+            "reckoned_coll": rec["collectives"], "ref_s": t_ref,
+            "reckon_s": time.perf_counter() - t0}
+
+
+def mesh_train_setup(job: dict, dev) -> dict:
+    """Phase 24's cell in a rank: ``mt_config()`` laid out by
+    ``launch.shardings.lm_layout`` on a ``MT_MESH`` DeviceMesh over the
+    group, from the parent's seeded tree (``convert.lm_params_from_numpy``),
+    its AdamW state, the parent's batch and the step."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch.train.optim import adamw_init
+
+    root = Path(job["mesh_train"]["dir"])
+    cfg = mt_config()
+    mesh = M.make_test_mesh(*MT_MESH, device=job["device"])
+    tree = _nested({f.name[2:-4]: np.load(f, mmap_mode="r")
+                    for f in sorted(root.glob("p.*.npy"))})
+    params = convert.lm_params_from_numpy(cfg, tree, device=dev)
+    del tree
+    step_cfg, specs = S.lm_layout(cfg, mesh)
+    params = S.distribute_tree(params, specs, mesh)
+    opt = adamw_init(dict(params.named_parameters()))
+    bspec = S.lm_batch_spec(mesh)
+    toks, labels = (S.distribute(torch.from_numpy(np.load(root / f)).to(dev),
+                                 bspec, mesh)
+                    for f in ("tokens.npy", "labels.npy"))
+    return {"params": params, "opt": opt, "toks": toks, "labels": labels,
+            "step": lm_train_step(step_cfg, 1, lr=MT_LR, device=dev),
+            "specs": specs, "mesh": mesh}
+
+
+def mesh_train_rank(rank: int, job: dict, dev) -> dict:
+    """Phase 24 in one of phase 23's ranks: ``MT_STEPS``
+    ``lm_train_step``s at ``MT_LR`` on ``mesh_train_setup``'s cell, every
+    collective staged through host memory
+    (``launch.mesh.HostStagedCollectives``: gloo has no all-gather or
+    reduce-scatter for CUDA tensors).  After the first step each
+    parameter's local shard is held to its slice of the unsharded
+    step's.  Returns the losses, grad norms, errors, step
+    times, the staged collectives and the first step's peak device
+    memory (less what the rank held before the cell)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import shardings as S
+    from repro_torch.models import layers as L
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mt = job["mesh_train"]
+    root = Path(mt["dir"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t_set = time.perf_counter()
+    # the RoPE table the model caches on this device (keyed as the model
+    # asks for it: the tokens' device, "cuda:0"), made beside the cell and
+    # not counted, as for every reckoned cell
+    cfg = mt_config()
+    L.rope_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
+                 torch.empty(0, device=dev).device)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    c = mesh_train_setup(job, dev)
+    params, opt, step = c["params"], c["opt"], c["step"]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = {"losses": [], "grad_norms": [], "ms": [],
+           "setup_s": time.perf_counter() - t_set}
+
+    def shard_of(path, p):
+        shape, off = compute_local_shape_and_global_offset(
+            p.shape, p.device_mesh, p.placements)
+        whole = np.load(path, mmap_mode="r")
+        return np.asarray(whole[tuple(slice(o, o + n)
+                                      for o, n in zip(off, shape))])
+
+    staged = M.HostStagedCollectives(dev.type)
+    for i in range(MT_STEPS):
+        dist.barrier()
+        calls0, bytes0 = dict(staged.calls), dict(staged.bytes)
+        t0 = time.perf_counter()
+        with staged:
+            params, opt, m = step(params, opt, c["toks"], c["labels"])
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+        sync()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["losses"].append(loss)
+        out["grad_norms"].append(norm)
+        if i:
+            continue
+        out["calls_a_step"] = {k: v - calls0.get(k, 0)
+                               for k, v in staged.calls.items()}
+        out["bytes_a_step"] = {k: v - bytes0.get(k, 0)
+                               for k, v in staged.bytes.items()}
+        if dev.type == "cuda":
+            stats = torch.cuda.memory_stats(dev)
+            out["peak_gib"] = (stats["allocated_bytes.all.peak"] - base) / 2**30
+            out["requested_peak_gib"] = (
+                stats.get("requested_bytes.all.peak", 0) - base) / 2**30
+        else:
+            out["peak_gib"] = out["requested_peak_gib"] = 0.0
+        t0 = time.perf_counter()
+        worst = {"sure": 0.0, "any": 0.0}
+        for name, p in params.named_parameters():
+            mine = p.to_local().detach().cpu().numpy().astype(np.float64)
+            diff = np.abs(mine - shard_of(root / f"s1.{name}.npy", p))
+            sure = shard_of(root / f"sure1.{name}.npy", p)
+            worst["sure"] = max(worst["sure"], float(
+                diff[sure].max(initial=0)) / mt["scales"][name])
+            worst["any"] = max(worst["any"], float(diff.max()))
+        out["errors"] = worst
+        out["compare_s"] = time.perf_counter() - t0
+    out["staged"] = {"calls": staged.calls, "bytes": staged.bytes,
+                     "staged_bytes": staged.staged_bytes,
+                     "gloo_s": staged.seconds}
+    out["placements"] = all(
+        list(p.placements) == S.placements(S.spec_of(n, c["specs"]),
+                                           c["mesh"])
+        for n, p in params.named_parameters())
+    del params, opt, step, c
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_check(mt: dict, results: list) -> dict:
+    """Phase 24's verdict in the parent: every rank's losses and grad norms
+    equal the unsharded step's within ``MT_TOL``, its shards of the first
+    step's parameters within ``MT_TOL`` of their largest value where |g| >=
+    ``STEP_DETERMINED`` and within 2 lr everywhere; its step's peak within ``RECKON_BAND`` (+
+    ``RECKON_SLACK_GIB``) of the reckoning; no kernel launched.  Returns
+    the launches the ranks made in this phase (all 0)."""
+    lo, hi = RECKON_BAND
+    want = mt["reckoned_gib"]
+    mesh_train_report(mt, results)
+    for r in results:
+        d, s = r["d"], r["rank"]
+        if not d["placements"]:
+            fail(f"mesh_train: rank {s}'s parameters are not laid out by "
+                 "their specs")
+        for what in ("losses", "grad_norms"):
+            err = max(abs(x - y) / max(abs(y), 1e-30)
+                      for x, y in zip(d[what], mt[what]))
+            if err > MT_TOL:
+                fail(f"mesh_train: rank {s}'s {what} {d[what]} differ from the "
+                     f"unsharded step's {mt[what]} ({err:.2e} > {MT_TOL})")
+        e = d["errors"]
+        if e["sure"] > MT_TOL or e["any"] > 2 * MT_LR:
+            fail(f"mesh_train: rank {s}'s first step differs from the "
+                 f"unsharded one: {e}")
+        got = d["peak_gib"]
+        if not lo * want <= got <= hi * want + RECKON_SLACK_GIB:
+            fail(f"mesh_train: rank {s}'s step peak {got:.3f} GiB is outside "
+                 f"{RECKON_BAND} (+ {RECKON_SLACK_GIB} GiB) of the reckoned "
+                 f"{want:.3f} GiB")
+        if any(d["launches"].values()):
+            fail(f"mesh_train: rank {s} launched {d['launches']}; the "
+                 "path's kernel set is empty")
+    return {name: sum(r["d"]["launches"][name] for r in results)
+            for name in KERNELS}
+
+
+def mesh_train_report(mt: dict, results: list) -> None:
+    want = mt["reckoned_gib"]
+    say(f"[mesh_train] {MT_ARCH} at full width, {MT_LAYERS} layers, float32, "
+        f"on a {MT_MESH[0]} {MT_MESH[1]} DeviceMesh over phase 23's "
+        f"{len(results)} gloo ranks (one card), laid out by lm_layout / "
+        f"lm_param_specs; {MT_STEPS} lm_train_steps at lr {MT_LR} on one "
+        f"seeded {MT_BATCH[0]} x {MT_BATCH[1]} batch; unsharded on the card: "
+        f"losses {mt['losses']}, grad norms {mt['grad_norms']} "
+        f"({mt['ref_s']:.1f} s with the tree's files); reckoned over a fake "
+        f"{len(results)}-rank group: {want:.3f} GiB a rank "
+        f"({mt['reckon_s']:.1f} s), collectives {mt['reckoned_coll']}")
+    for r in sorted(results, key=lambda r: r["rank"]):
+        d = r["d"]
+        st = d["staged"]
+        say(f"[mesh_train] rank {r['rank']}: losses {d['losses']}, grad norms "
+            f"{d['grad_norms']}; first step vs unsharded: {d['errors']} (tol "
+            f"{MT_TOL}, 2 lr {2 * MT_LR}); step ms "
+            + ", ".join(f"{x:.1f}" for x in d["ms"])
+            + f"; collectives (both steps) {st['calls']} calls, "
+            f"{ {k: v for k, v in st['bytes'].items()} } bytes by kind, "
+            f"{st['staged_bytes'] / 1e9:.3f} GB staged through host memory, "
+            f"{st['gloo_s']:.2f} s inside gloo's calls; a step's calls "
+            f"{d['calls_a_step']}, bytes {d['bytes_a_step']} "
+            f"({sum(d['bytes_a_step'].values()) / 1e9:.3f} GB; reckoned "
+            f"{mt['reckoned_coll']['total_bytes'] / 1e9:.3f}); step peak "
+            f"{d['peak_gib']:.3f} GiB ({d['requested_peak_gib']:.3f} "
+            f"requested) vs reckoned {want:.3f} "
+            f"(x{d['peak_gib'] / want:.4f}); set-up {d['setup_s']:.1f} s, "
+            f"comparison {d['compare_s']:.1f} s, the rank's phase "
+            f"{d.get('s', 0):.1f} s; predicted {MT_PREDICTED}")
 
 
 # ---------------------------------------------------------------------- #
@@ -4599,17 +4941,42 @@ def main() -> int:
     # Its kernels run in the ranks, which report their launches; the
     # parent's counts are set to 0 too (its in-process compress reference
     # is torch ops).
+    # Phase 24's parent half runs first (the unsharded step on the card and
+    # the reckoning over a fake group); its ranks' half runs in phase 23's
+    # ranks after (c), their counts set to 0 just before it.
     torch.cuda.empty_cache()
     zero_counts()
-    ranks = process_group_phase(
+    t_mt = time.perf_counter()
+    mt = mesh_train_prepare(dev, pg_root / "mesh_train")
+    t_mt = time.perf_counter() - t_mt
+    mt_parent = read_counts("mesh_train (parent: the unsharded step, the "
+                            "reckoning; kernel set: none)", ())
+    torch.cuda.empty_cache()
+    zero_counts()
+    ranks, results = process_group_phase(
         dev, kind, dict(pg_job, engine_dir=str(pg_root / "engine"),
-                        grads_file=str(pg_root / "grads.pt")),
+                        grads_file=str(pg_root / "grads.pt"),
+                        mesh_train=mt),
         sh13, measured["engine"], measured["gnn"]["grads"])
     path_counts["process_group"] = {
         name: mod.launches + ranks[name] for name, mod in counters.items()}
     say(f"[process_group (ranks' launches summed)] kernel launches "
         f"{path_counts['process_group']} "
         f"({time.perf_counter() - t_start:.1f} s into the run)")
+
+    # ---- 24. mesh_train: the sharded LM step in phase 23's ranks ------- #
+    in_ranks = mesh_train_check(mt, results)
+    path_counts["mesh_train"] = {name: mt_parent[name] + in_ranks[name]
+                                 for name in KERNELS}
+    if any(path_counts["mesh_train"].values()):
+        fail(f"the mesh_train path launched {path_counts['mesh_train']}; its "
+             "kernel set is empty")
+    say(f"[mesh_train (parent and ranks)] kernel launches "
+        f"{path_counts['mesh_train']}; phase {t_mt + max(r['d']['s'] for r in results):.1f} s "
+        f"(parent {t_mt:.1f} s, ranks {max(r['d']['s'] for r in results):.1f} s; "
+        f"predicted {MT_PREDICTED['phase_s']} s) "
+        f"({time.perf_counter() - t_start:.1f} s into the run)")
+    del results
     del measured
     shutil.rmtree(ckpt_root, ignore_errors=True)
     shutil.rmtree(pg_root, ignore_errors=True)

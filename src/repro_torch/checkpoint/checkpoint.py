@@ -365,14 +365,31 @@ def load_checkpoint_items(
 def restore_sharded(ckpt_dir: str, step: int, like: Any,
                     shardings: Any = None, device=None) -> Any:
     """Elastic restore: the leaves of ``like``'s structure as tensors on
-    devices — ``shardings`` (a tree like ``like`` whose leaves are
-    devices) names each leaf's device; without it every leaf goes to the
-    CUDA card unless ``device`` names another.  The leaves are read at
-    their checkpointed shapes, so a restart may place them anew."""
+    devices.  ``shardings`` is a tree like ``like`` whose leaves are
+    devices (each leaf's device), or a pair ``(spec_tree, mesh)``: a tree
+    like ``like`` whose leaves are specs (``launch.shardings``) and a
+    ``DeviceMesh`` of any shape, each leaf then laid out on it as a
+    DTensor (every rank reads the whole leaf and keeps its slice).
+    Without ``shardings`` every leaf goes to the CUDA card unless
+    ``device`` names another.  The leaves are read at their checkpointed
+    shapes, so a restart may place them anew."""
+    from torch.distributed.device_mesh import DeviceMesh
+
     from ..core.index import resolve_device
 
     host = load_checkpoint(ckpt_dir, step, like)
     _, leaves = _flatten_with_paths(host)
+    if (isinstance(shardings, tuple) and len(shardings) == 2
+            and isinstance(shardings[1], DeviceMesh)):
+        from ..launch.shardings import distribute
+
+        specs, mesh = shardings
+        per_leaf: list = []
+        _spec_leaves(like, specs, per_leaf)
+        dev = torch.device(mesh.device_type)
+        return _unflatten(like, [
+            distribute(torch.as_tensor(x).to(dev), spec, mesh)
+            for x, spec in zip(leaves, per_leaf)])
     if shardings is None:
         dev = resolve_device(device)
         targets = [dev] * len(leaves)
@@ -383,3 +400,21 @@ def restore_sharded(ckpt_dir: str, step: int, like: Any,
                              "leaves")
     return _unflatten(like, [torch.as_tensor(x).to(d)
                              for x, d in zip(leaves, targets)])
+
+
+def _spec_leaves(like, specs, out: list) -> None:
+    """The specs of ``like``'s leaves in its flatten order, from a spec
+    tree of its structure (whose spec leaves are tuples themselves)."""
+    if like is None:
+        return
+    if isinstance(like, dict):
+        for key in sorted(like):
+            _spec_leaves(like[key], specs[key], out)
+    elif _is_namedtuple(like):
+        for name, child in zip(like._fields, like):
+            _spec_leaves(child, getattr(specs, name), out)
+    elif isinstance(like, (list, tuple)):
+        for child, spec in zip(like, specs):
+            _spec_leaves(child, spec, out)
+    else:
+        out.append(specs)

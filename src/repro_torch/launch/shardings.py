@@ -18,12 +18,20 @@ Baseline layout (the reference's):
 
 ``mesh`` is a ``DeviceMesh`` or a plain ``(axis_names, shape)`` value
 (``launch.mesh.names_and_shape``); :func:`placements` turns a spec into
-DTensor placements and :func:`distribute` places a tensor by it.
+DTensor placements, :func:`distribute` places a tensor by it and
+:func:`distribute_tree` a parameter module, an AdamW state or a batch by
+a spec tree.  :func:`lm_layout` makes the reference's four layout
+choices (``launch/steps.py`` ``_lm_layout_from_env``), as keyword
+arguments at its defaults.
 """
 
 from __future__ import annotations
 
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+import dataclasses
+
+from torch import nn
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from ..train.optim import AdamWState
 from .mesh import axis_size, batch_axes, flat_axes, names_and_shape
@@ -85,8 +93,72 @@ def placements(spec: tuple, mesh) -> list:
 
 def distribute(tensor, spec: tuple, mesh):
     """``tensor`` as a DTensor over the ``DeviceMesh`` ``mesh``, laid out
-    by ``spec`` (every rank passes the same global tensor)."""
-    return distribute_tensor(tensor, mesh, placements(spec, mesh))
+    by ``spec``: every rank passes the same global tensor and keeps its
+    own slice of it (nothing is sent)."""
+    out = distribute_tensor(tensor, mesh, placements(spec, mesh),
+                            src_data_rank=None)
+    local = out.to_local()
+    if local.untyped_storage()._cdata != tensor.untyped_storage()._cdata:
+        return out
+    # a slice of the global tensor: a storage of its own, so that the
+    # global one can go (and the meta device's reckoning counts a shard)
+    return DTensor.from_local(local.clone(), mesh, out.placements,
+                              run_check=False, shape=out.shape,
+                              stride=out.stride())
+
+
+def _is_spec(node) -> bool:
+    return isinstance(node, tuple) and not hasattr(node, "_fields") and all(
+        e is None or isinstance(e, (str, tuple)) for e in node)
+
+
+def spec_of(name: str, spec_tree) -> tuple:
+    """The spec of the parameter ``name`` (``"layers.3.wq"``, as
+    ``named_parameters`` spells it) in a spec tree of the reference's
+    layout, whose layer leaves are stacked on a leading axis: an integer
+    component picks one entry of that axis, so its leading spec entry is
+    dropped."""
+    node, stacked = spec_tree, 0
+    for part in name.split("."):
+        if part.isdigit():
+            stacked += 1
+            continue
+        node = node[part]
+    if not _is_spec(node):
+        raise ValueError(f"{name}: no spec (got {node!r})")
+    return node[stacked:]
+
+
+def distribute_tree(tree, spec_tree, mesh):
+    """``tree`` laid out on ``mesh`` by ``spec_tree``: a parameter module
+    (``models.gnn.Params``) has its parameters replaced by DTensor
+    parameters in place and is returned; a mapping of parameter names to
+    tensors (an AdamW moment tree) or a spec-shaped dict, tuple or named
+    tuple of tensors is returned laid out.  An ``AdamWState`` keeps its
+    step counter a plain tensor."""
+    if tree is None:
+        return None
+    if isinstance(tree, nn.Module):
+        for name, p in list(tree.named_parameters()):
+            owner = tree.get_submodule(name.rpartition(".")[0])
+            owner._parameters[name.rpartition(".")[2]] = nn.Parameter(
+                distribute(p.detach(), spec_of(name, spec_tree), mesh),
+                requires_grad=p.requires_grad)
+        return tree
+    if isinstance(tree, AdamWState):
+        return AdamWState(tree.step,
+                          distribute_tree(tree.mu, spec_tree.mu, mesh),
+                          distribute_tree(tree.nu, spec_tree.nu, mesh))
+    if isinstance(tree, dict):
+        if all(k in spec_tree for k in tree):
+            return {k: distribute_tree(v, spec_tree[k], mesh)
+                    for k, v in tree.items()}
+        return {k: distribute(v, spec_of(k, spec_tree), mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(distribute_tree(v, s, mesh)
+                            for v, s in zip(tree, spec_tree)))
+    return distribute(tree, spec_tree, mesh)
 
 
 # ---------------------------------------------------------------------- #
@@ -133,6 +205,39 @@ def lm_param_specs(cfg, mesh, fsdp: str | tuple | None = "data",
     if not cfg.tie_embeddings:
         specs["lm_head"] = _spec(mesh, (d, efsdp), (v, m))
     return specs
+
+
+def lm_layout(cfg, mesh, *, fsdp="data", embed_fsdp: bool = True,
+              context_parallel: bool = True, moe_tp: bool = False):
+    """``(cfg, param_specs)`` of the reference's ``lm_cell`` on ``mesh``:
+    ``fsdp`` the axes the parameters' d_model dims shard over (a name, a
+    tuple, or None), ``embed_fsdp`` whether the embedding's does too;
+    ``context_parallel`` (on) shards attention's sequence over "model"
+    when the heads do not divide it; ``moe_tp`` (off) shards the MoE
+    buffers' capacity over "model" with the experts' d_ff replicated.
+    Axes the mesh lacks are dropped from ``fsdp``."""
+    names, _ = names_and_shape(mesh)
+    if isinstance(fsdp, tuple):
+        fsdp = tuple(a for a in fsdp if a in names)
+        fsdp = fsdp if len(fsdp) > 1 else (fsdp[0] if fsdp else None)
+    elif fsdp not in names:
+        fsdp = None
+    tp = axis_size(mesh, "model") if "model" in names else 1
+    baxes = batch_axes(mesh)
+    if context_parallel and cfg.n_heads % tp != 0:
+        cfg = dataclasses.replace(cfg, attn_batch_axes=baxes,
+                                  attn_seq_axes=("model",))
+    if moe_tp and cfg.is_moe:
+        cfg = dataclasses.replace(cfg, moe_c_axes=("model",),
+                                  attn_batch_axes=baxes)
+    specs = lm_param_specs(cfg, mesh, fsdp=fsdp, embed_fsdp=embed_fsdp)
+    if moe_tp and cfg.is_moe:
+        nl, e, d, f = cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff
+        lay = specs["layers"]
+        lay["w_gate"] = _spec(mesh, (nl, None), (e, None), (d, fsdp), (f, None))
+        lay["w_up"] = _spec(mesh, (nl, None), (e, None), (d, fsdp), (f, None))
+        lay["w_down"] = _spec(mesh, (nl, None), (e, None), (f, None), (d, fsdp))
+    return cfg, specs
 
 
 def lm_batch_spec(mesh) -> tuple:

@@ -24,15 +24,22 @@ mesh) names another, and refuses inputs that lie elsewhere.
 (architecture x input shape) cell as a :class:`Cell` — the step and its
 inputs, made directly on ``device`` at the reference's shapes and dtypes.
 On the meta device nothing is allocated, so ``launch.dryrun`` reckons a
-cell far too big for the card.
+cell far too big for the card.  Given a ``DeviceMesh``, an LM or BST
+cell lays its parameters, optimizer state, batches and cache out by the
+reference's sharding rules (``launch.shardings``) as DTensors, and the
+same steps run on them: over a real group (gloo) each rank computes its
+shards; over ``launch.mesh.reckoning_mesh``'s fake group, on the meta
+device, one rank's step is reckoned.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import Replicate
 
 from ..core import distributed as D
 from ..core.index import resolve_device
@@ -41,6 +48,8 @@ from ..models import layers as L
 from ..models import recsys as RS
 from ..models import transformer as T
 from ..train.optim import AdamWState, adamw_init, adamw_update
+from . import shardings as S
+from .mesh import names_and_shape
 
 # per-arch gradient-accumulation factor at the train_4k shape (the
 # reference's, sized there for per-device saved activations)
@@ -123,14 +132,15 @@ def lm_train_step(cfg: T.LMConfig, accum: int = 1, lr: float = 3e-4,
             loss, grads = micro(tokens, labels)
         else:
             gb, seq = tokens.shape
-            toks = tokens.reshape(accum, gb // accum, seq)
-            labs = labels.reshape(accum, gb // accum, seq)
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            toks = _whole(tokens).reshape(accum, gb // accum, seq)
+            labs = _whole(labels).reshape(accum, gb // accum, seq)
+            # the float32 sums keep each parameter's placements
+            grads = {k: torch.zeros_like(p, dtype=torch.float32,
+                                         memory_format=torch.contiguous_format)
                      for k, p in named.items()}
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            loss = 0.0
             for i in range(accum):
-                loss_i, g = micro(toks[i], labs[i])
+                loss_i, g = micro(L.pin_batch(toks[i]), L.pin_batch(labs[i]))
                 for k, gi in g.items():
                     grads[k].add_(gi)
                 loss = loss + loss_i
@@ -138,11 +148,22 @@ def lm_train_step(cfg: T.LMConfig, accum: int = 1, lr: float = 3e-4,
             for g in grads.values():
                 g.div_(accum)
             loss = loss / accum
+        if L.is_dtensor(loss):
+            loss = loss.full_tensor()
         _, new_opt, om = adamw_update(grads, opt_state, named, lr=lr,
                                       inplace=True)
         return params, new_opt, {"loss": loss, **om}
 
     return step
+
+
+def _whole(t):
+    """A batch DTensor replicated (its microbatches are then split anew,
+    as the reference's reshape splits the global batch); a plain tensor
+    as it is."""
+    if not L.is_dtensor(t):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
 
 
 def lm_prefill_step(cfg: T.LMConfig, device=None):
@@ -207,7 +228,10 @@ def bst_train_step(cfg: RS.BSTConfig, lr: float = 1e-3, device=None):
         loss, _ = RS.train_loss(cfg, params, batch)
         _, new_opt, om = adamw_update(_grads(loss, named), opt_state, named,
                                       lr=lr, inplace=True)
-        return params, new_opt, {"loss": loss.detach(), **om}
+        loss = loss.detach()
+        if L.is_dtensor(loss):
+            loss = loss.full_tensor()
+        return params, new_opt, {"loss": loss, **om}
 
     return step
 
@@ -268,9 +292,10 @@ F32 = torch.float32
 
 @dataclasses.dataclass
 class Cell:
-    """The reference's ``Cell`` on one card: ``fn(*args)`` runs the step;
-    ``mesh_shape`` names the card (or the engine's in-process shards);
-    ``reduced`` the cuts ``build_cell`` was given."""
+    """The reference's ``Cell``: ``fn(*args)`` runs the step;
+    ``mesh_shape`` names the mesh's axes and sizes (``{"card": 1}`` on
+    one card, the engine's in-process shards); ``reduced`` the cuts
+    ``build_cell`` was given."""
 
     arch_id: str
     shape_name: str
@@ -280,13 +305,22 @@ class Cell:
     mesh_shape: dict
     reduced: dict
     description: str = ""
+    n_devices: int = 1
+    axis_of_group: dict = dataclasses.field(default_factory=dict)
 
 
-def build_cell(spec, shape, device="meta", **reduce) -> Cell:
+MESH_WAITS = ("ROADMAP item 16(b): the GNN and engine cells on a mesh "
+              "wait for their own slice")
+
+
+def build_cell(spec, shape, device="meta", mesh=None, **reduce) -> Cell:
     """The cell of ``spec`` (a ``configs.ArchSpec``) at ``shape`` on
-    ``device`` (the meta device by default).  ``reduce`` cuts it: a key of
+    ``device`` (the meta device by default), laid out on ``mesh`` (a
+    ``DeviceMesh``; None for one device).  ``reduce`` cuts it: a key of
     ``shape.dims`` (``global_batch``, ``seq_len``, ``batch``, ...), a field
-    of ``spec.config`` (``n_layers``, ...), or one of ``CELL_KNOBS``."""
+    of ``spec.config`` (``n_layers``, ...), or one of ``CELL_KNOBS``.  A
+    GNN or engine cell on a mesh raises ``NotImplementedError``
+    (``MESH_WAITS``)."""
     dims, changes, knobs = dict(shape.dims), {}, {}
     for key, value in reduce.items():
         if key in dims:
@@ -300,12 +334,21 @@ def build_cell(spec, shape, device="meta", **reduce) -> Cell:
     cfg = dataclasses.replace(spec.config, **changes) if changes \
         else spec.config
     dev = torch.device(device)
+    if mesh is not None:
+        if spec.family not in ("lm", "recsys"):
+            raise NotImplementedError(f"{spec.arch_id}: {MESH_WAITS}")
+        knobs["mesh"] = mesh
     make = {"lm": _lm_cell, "gnn": _gnn_cell, "recsys": _bst_cell,
             "engine": _engine_cell}[spec.family]
     fn, args, mesh_shape, description = make(spec, cfg, shape, dims, knobs,
                                              dev)
-    return Cell(spec.arch_id, shape.name, fn, args, dev, mesh_shape,
+    cell = Cell(spec.arch_id, shape.name, fn, args, dev, mesh_shape,
                 dict(reduce), description)
+    if mesh is not None:
+        cell.n_devices = mesh.size()
+        cell.axis_of_group = {mesh.get_group(i).group_name: name
+                              for i, name in enumerate(mesh.mesh_dim_names)}
+    return cell
 
 
 def _zeros(shape, dtype, dev) -> torch.Tensor:
@@ -319,29 +362,59 @@ def _generator(dev) -> torch.Generator:
     return torch.Generator(device=on).manual_seed(0)
 
 
+def _mesh_shape(mesh) -> dict:
+    if mesh is None:
+        return {"card": 1}
+    return dict(zip(*names_and_shape(mesh)))
+
+
+def _laid(mesh, tree, specs):
+    """``tree`` laid out by ``specs`` on ``mesh``; as it is without one
+    (``specs`` may then be anything)."""
+    return tree if mesh is None else S.distribute_tree(tree, specs, mesh)
+
+
 def _lm_cell(spec, cfg, shape, dims, knobs, dev):
-    params = T.init_params(cfg, _generator(dev), dev)
+    mesh, pspecs = knobs.get("mesh"), None
+    if mesh is not None:
+        cfg, pspecs = S.lm_layout(cfg, mesh)
+    params = _laid(mesh, T.init_params(cfg, _generator(dev), dev), pspecs)
     # the RoPE table the model caches per device is made here, beside the
     # inputs, as it stands resident on a card that has run the model
     L.rope_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, dev)
     b, seq = dims["global_batch"], dims["seq_len"]
-    card = {"card": 1}
+    where = _mesh_shape(mesh)
+    bspec = S.lm_batch_spec(mesh) if mesh is not None else None
     if shape.kind == "train":
         accum = knobs.get("accum", TRAIN_ACCUM.get(spec.arch_id, 1))
         opt = adamw_init(dict(params.named_parameters()))
-        toks = _zeros((b, seq), I32, dev)
+        toks = _laid(mesh, _zeros((b, seq), I32, dev), bspec)
+        labs = _laid(mesh, _zeros((b, seq), I32, dev), bspec)
         return (lm_train_step(cfg, accum, device=dev),
-                (params, opt, toks, _zeros((b, seq), I32, dev)), card,
+                (params, opt, toks, labs), where,
                 f"train {b}x{seq} accum={accum}")
     cache = T.make_cache(cfg, b, seq, device=dev)
+    if mesh is not None:
+        names, sizes = names_and_shape(mesh)
+        if b % math.prod(s for a, s in zip(names, sizes)
+                         if a != "model") == 0:
+            cspecs = S.lm_cache_specs(cfg, mesh)
+        else:
+            # the reference's tiny-batch long-context layout: the KV time
+            # over the whole mesh (flash-decoding style), batch replicated
+            every = names if len(names) > 1 else names[0]
+            cspecs = {"k": (None, None, every, None, None),
+                      "v": (None, None, every, None, None)}
+            bspec = (None, None)
+        cache = S.distribute_tree(cache, cspecs, mesh)
     if shape.kind == "prefill":
         return (lm_prefill_step(cfg, device=dev),
-                (params, _zeros((b, seq), I32, dev), cache), card,
-                f"prefill {b}x{seq}")
+                (params, _laid(mesh, _zeros((b, seq), I32, dev), bspec),
+                 cache), where, f"prefill {b}x{seq}")
     if shape.kind == "decode":  # one token a sequence into the last slot
         return (lm_decode_step(cfg, device=dev),
-                (params, cache, _zeros((b, 1), I32, dev), seq - 1), card,
-                f"decode b={b} kv={seq}")
+                (params, cache, _laid(mesh, _zeros((b, 1), I32, dev), bspec),
+                 seq - 1), where, f"decode b={b} kv={seq}")
     raise ValueError(shape.kind)
 
 
@@ -372,33 +445,56 @@ def _gnn_cell(spec, cfg, shape, dims, knobs, dev):
 
 
 def _bst_cell(spec, cfg, shape, dims, knobs, dev):
-    params = RS.init_params(cfg, _generator(dev), dev)
+    mesh = knobs.get("mesh")
+    params = _laid(mesh, RS.init_params(cfg, _generator(dev), dev),
+                   mesh and S.bst_param_specs(cfg, mesh))
+    where = _mesh_shape(mesh)
     f = cfg.n_context_fields
 
     def batch(b):
-        return RS.BSTBatch(
+        one = _zeros((b * f,), I32, dev)
+        out = RS.BSTBatch(
             item_ids=_zeros((b, cfg.seq_len), I32, dev),
             cat_ids=_zeros((b, cfg.seq_len), I32, dev),
-            ctx_ids=_zeros((b * f,), I32, dev),
-            ctx_segs=_zeros((b * f,), I32, dev),
+            ctx_ids=one, ctx_segs=one.clone(),
             labels=_zeros((b,), I32, dev))
+        return _laid(mesh, out, mesh and bst_batch_specs(mesh))
 
     b = dims["batch"]
     if shape.kind == "train":
         opt = adamw_init(dict(params.named_parameters()))
         return (bst_train_step(cfg, lr=1e-3, device=dev),
-                (params, opt, batch(b)), {"card": 1}, f"bst train b={b}")
+                (params, opt, batch(b)), where, f"bst train b={b}")
     if shape.kind == "serve":
         return (bst_serve_step(cfg, device=dev), (params, batch(b)),
-                {"card": 1}, f"bst serve b={b}")
+                where, f"bst serve b={b}")
     if shape.kind == "retrieval":
         nc = dims["n_candidates"]
+        seq = [_zeros((1, cfg.seq_len), I32, dev),
+               _zeros((1, cfg.seq_len), I32, dev), _zeros((f,), I32, dev),
+               _zeros((f,), I32, dev)]
+        if mesh is not None:  # the candidates over every axis, the rest
+            names = names_and_shape(mesh)[0]  # replicated
+            total = math.prod(names_and_shape(mesh)[1])
+            nc = -(-nc // total) * total
+            seq = [S.distribute(t, (None,) * t.ndim, mesh) for t in seq]
+            cand = S.distribute(_zeros((nc,), I32, dev),
+                                (names if len(names) > 1 else names[0],),
+                                mesh)
+        else:
+            cand = _zeros((nc,), I32, dev)
         return (bst_retrieval_step(cfg, k=128, device=dev),
-                (params, _zeros((1, cfg.seq_len), I32, dev),
-                 _zeros((1, cfg.seq_len), I32, dev), _zeros((f,), I32, dev),
-                 _zeros((f,), I32, dev), _zeros((nc,), I32, dev)),
-                {"card": 1}, f"bst retrieval 1x{nc}")
+                (params, *seq, cand), where, f"bst retrieval 1x{nc}")
     raise ValueError(shape.kind)
+
+
+def bst_batch_specs(mesh) -> RS.BSTBatch:
+    """The reference's ``batch_shard``: every field's rows over the batch
+    axes."""
+    bs = S.bst_batch_spec(mesh)
+    row2 = (bs[0], None)
+    return RS.BSTBatch(item_ids=row2, cat_ids=row2, ctx_ids=bs, ctx_segs=bs,
+                       labels=bs)
 
 
 def _engine_cell(spec, cfg, shape, dims, knobs, dev):

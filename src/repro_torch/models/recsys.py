@@ -18,6 +18,16 @@ Shapes (``configs.recsys_shapes``): train_batch B=65 536, serve_p99
 B=512, serve_bulk B=262 144, retrieval_cand B=1 over 1 M candidates (the
 sequence tower runs once, the candidates are scored by one batched dot,
 then top-k).
+
+On a mesh (``launch.shardings.bst_param_specs``: the tables' rows over
+"model", the dense layers replicated; the batch over the other axes) the
+lookups are vocabulary-parallel (``layers.embedding_on_mesh``: each
+rank reads the ids its rows hold, the parts all-reduced), the
+EmbeddingBag's ``index_add_`` runs on each rank's ids into every
+segment and the partial sums are reduce-scattered to the batch layout,
+and the block and the MLP, per example, run on each rank's own rows with
+the replicated weights (whose gradients are then partial sums over the
+batch axes).
 """
 
 from __future__ import annotations
@@ -29,7 +39,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Shard
 
+from . import layers as L
 from .gnn import Params
 
 
@@ -122,6 +134,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, segs: torch.Tensor,
     """EmbeddingBag as gather + ``index_add_`` over unsorted segments; a
     segment id outside [0, n_segments) is dropped, as ``segment_sum``
     drops it.  ``mode="mean"`` divides by max(count, 1)."""
+    if L.is_dtensor(table):
+        return _embedding_bag_on_mesh(table, ids, segs, n_segments, mode)
     rows = table[ids]
     segs = segs.long()
     spare = torch.where((segs >= 0) & (segs < n_segments), segs, n_segments)
@@ -134,6 +148,59 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, segs: torch.Tensor,
             0, spare, torch.ones_like(ids, dtype=table.dtype))[:n_segments]
         out = out / torch.clamp(cnt, min=1.0)[:, None]
     return out
+
+
+def _lookup(table, ids):
+    """``table[ids]``; on a mesh the vocabulary-parallel lookup
+    (``layers.embedding_on_mesh``), pinned to the ids' batch layout."""
+    if not L.is_dtensor(table):
+        return table[ids]
+    return L.pin_batch(L.embedding_on_mesh(table, ids))
+
+
+def _embedding_bag_on_mesh(table, ids, segs, n_segments, mode):
+    rows = _lookup(table, ids)  # (N, d), N over the batch axes
+    mesh = rows.device_mesh
+    seg_l = segs.redistribute(mesh, rows.placements[:]).to_local().long() \
+        if L.is_dtensor(segs) else segs.long()
+    rl = rows.to_local()
+    spare = torch.where((seg_l >= 0) & (seg_l < n_segments), seg_l,
+                        n_segments)
+    part = [Partial() if isinstance(p, Shard) else p
+            for p in rows.placements]
+
+    def summed(values):  # every segment's partial sum, then reduced
+        out = torch.zeros((n_segments + 1,) + values.shape[1:],
+                          dtype=values.dtype, device=values.device)
+        out = out.index_add_(0, spare, values)[:n_segments]
+        whole = DTensor.from_local(out, mesh, part, run_check=False)
+        return L.pin_batch(whole)
+
+    out = summed(rl)
+    if mode == "mean":
+        cnt = summed(torch.ones(rl.shape[:1], dtype=rl.dtype,
+                                device=rl.device))
+        out = out / torch.clamp(cnt, min=1.0)[:, None]
+    return out
+
+
+def _on_rows(fn, x, *weights):
+    """``fn(x, *weights)`` per example on each rank's rows of the
+    batch-laid-out DTensor ``x``, the replicated ``weights`` (trees of
+    them) as local tensors whose gradients are partial sums over the
+    batch axes; plain tensors go straight through."""
+    if not L.is_dtensor(x):
+        return fn(x, *weights)
+    split = [isinstance(p, Shard) for p in x.placements]
+
+    def local(w):
+        if isinstance(w, (nn.Module, dict)):
+            return {k: local(v) for k, v in (
+                w.named_parameters(recurse=False) if isinstance(w, nn.Module)
+                else w.items())}
+        return w.to_local(grad_placements=L.grad_parts(w, split))
+
+    return L.like(fn(x.to_local(), *map(local, weights)), x)
 
 
 def _ln(x, w, eps=1e-6):
@@ -160,12 +227,16 @@ def _transformer_block(bp, x, n_heads):
 
 def sequence_tower(cfg: BSTConfig, params, item_ids, cat_ids):
     """(B, S) ids -> (B, S*2d) transformer-encoded sequence features."""
-    e = torch.cat([params["item_emb"][item_ids],
-                   params["cat_emb"][cat_ids]], -1)  # (B,S,2d)
-    x = e + params["pos_emb"][None]
-    for bp in params["blocks"]:
-        x = _transformer_block(bp, x, cfg.n_heads)
-    return x.reshape(x.shape[0], -1)
+    e = torch.cat([_lookup(params["item_emb"], item_ids),
+                   _lookup(params["cat_emb"], cat_ids)], -1)  # (B,S,2d)
+
+    def tower(e, pos, *blocks):
+        x = e + pos[None]
+        for bp in blocks:
+            x = _transformer_block(bp, x, cfg.n_heads)
+        return x.reshape(x.shape[0], -1)
+
+    return _on_rows(tower, e, params["pos_emb"], *params["blocks"])
 
 
 def forward(cfg: BSTConfig, params, batch: BSTBatch) -> torch.Tensor:
@@ -173,13 +244,16 @@ def forward(cfg: BSTConfig, params, batch: BSTBatch) -> torch.Tensor:
     b = batch.item_ids.shape[0]
     seq = sequence_tower(cfg, params, batch.item_ids, batch.cat_ids)
     ctx = embedding_bag(params["ctx_emb"], batch.ctx_ids, batch.ctx_segs, b)
-    x = torch.cat([seq, ctx], -1)
     n = len(cfg.mlp_dims) + 1
-    for i in range(n):
-        x = x @ params["mlp"][f"w{i}"] + params["mlp"][f"b{i}"]
-        if i < n - 1:
-            x = F.leaky_relu(x)
-    return x[:, 0].float()
+
+    def mlp(x, w):
+        for i in range(n):
+            x = x @ w[f"w{i}"] + w[f"b{i}"]
+            if i < n - 1:
+                x = F.leaky_relu(x)
+        return x[:, 0].float()
+
+    return _on_rows(mlp, torch.cat([seq, ctx], -1), params["mlp"])
 
 
 def train_loss(cfg: BSTConfig, params, batch: BSTBatch):
@@ -207,6 +281,10 @@ def retrieval_scores(cfg: BSTConfig, params, item_ids, cat_ids, ctx_ids,
     user = torch.cat([seq, ctx], -1)  # (1, D)
     w = params["mlp"]["w0"][:, : cfg.embed_dim]  # (D, d)
     u = torch.tanh(user @ w)  # (1, d)
+    if L.is_dtensor(cand_ids):  # ids over every axis, scores gathered
+        cand = L.same_layout(
+            L.embedding_on_mesh(params["item_emb"], cand_ids), cand_ids)
+        return (cand @ u[0]).float().full_tensor()
     cand = params["item_emb"][cand_ids]  # (n_cand, d)
     return (cand @ u[0]).float()
 
@@ -219,4 +297,6 @@ def retrieval_topk(cfg: BSTConfig, params, item_ids, cat_ids, ctx_ids,
     scores = retrieval_scores(cfg, params, item_ids, cat_ids, ctx_ids,
                               ctx_segs, cand_ids)
     vals, idx = torch.sort(scores, descending=True, stable=True)
+    if L.is_dtensor(cand_ids):
+        cand_ids = cand_ids.full_tensor()
     return vals[:k], cand_ids[idx[:k]]

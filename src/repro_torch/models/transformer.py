@@ -81,8 +81,10 @@ class LMConfig:
     # attention for sequences >= 2 * q_chunk (0 disables); ``remat``
     # recomputes each layer in the backward pass instead of keeping its
     # activations (``forward`` reads it while autograd records); the axis
-    # hints place work on a TPU mesh and change no value, so the port's
-    # one-card path does not read them
+    # hints (context-parallel attention: the query sequence, or in the
+    # chunked path the K/V time, over ``attn_seq_axes``; the MoE buffers'
+    # capacity over ``moe_c_axes``) place work on a mesh and change no
+    # value: on plain tensors they are no-ops
     remat: bool = False
     q_chunk: int = 0
     attn_batch_axes: tuple = ()
@@ -208,10 +210,26 @@ def _as(value: float, dtype: torch.dtype) -> float:
 
 def _write_cache(c: torch.Tensor, new: torch.Tensor, pos) -> None:
     """``lax.dynamic_update_slice(c, new, (0, pos, 0, 0))`` in place: the
-    start is clamped so that the update fits, as XLA clamps it."""
+    start is clamped so that the update fits, as XLA clamps it.  On a
+    mesh each rank writes the rows of its own shard of the cache (its
+    time range, when time is sharded)."""
     s, t = new.shape[1], c.shape[1]
     start = min(max(int(pos), 0), t - s)
-    c[:, start:start + s] = new.to(c.dtype)
+    if not L.is_dtensor(c):
+        c[:, start:start + s] = new.to(c.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    whole_time = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                  for p in c.placements]
+    nl = new.to(c.dtype).redistribute(c.device_mesh, whole_time).to_local()
+    shape, off = compute_local_shape_and_global_offset(
+        c.shape, c.device_mesh, c.placements)
+    lo, hi = max(start, off[1]), min(start + s, off[1] + shape[1])
+    if lo < hi:
+        c.to_local()[:, lo - off[1]:hi - off[1]] = nl[:, lo - start:hi - start]
 
 
 def _block(cfg: LMConfig, x, lp, kind_code: int, masks, cos, sin, positions,
@@ -221,11 +239,20 @@ def _block(cfg: LMConfig, x, lp, kind_code: int, masks, cos, sin, positions,
     ``cache_pos`` in place.  Returns (x, cache_kv, aux)."""
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = L.pin_batch(x)
 
     a_in = _norm(x, lp["attn_norm"], cfg)
-    q = (a_in @ lp["wq"]).reshape(b, s, h, hd)
-    kk = (a_in @ lp["wk"]).reshape(b, s, kv, hd)
-    vv = (a_in @ lp["wv"]).reshape(b, s, kv, hd)
+    chunked = bool(cfg.q_chunk and s >= 2 * cfg.q_chunk)
+    # context parallel: the queries' sequence over TP, or in the chunked
+    # path the K/V time
+    cp = (L.spec_entry(cfg.attn_batch_axes), L.spec_entry(cfg.attn_seq_axes),
+          None)
+    q = _heads(a_in @ L.tp_only(lp["wq"]), h, hd,
+               cp if cfg.attn_seq_axes and s > 1 and not chunked else None)
+    kk = _heads(a_in @ L.tp_only(lp["wk"]), kv, hd,
+                cp if cfg.attn_seq_axes and chunked else None)
+    vv = _heads(a_in @ L.tp_only(lp["wv"]), kv, hd,
+                cp if cfg.attn_seq_axes and chunked else None)
     q = L.apply_rope(q, cos, sin, positions)
     kk = L.apply_rope(kk, cos, sin, positions)
 
@@ -238,22 +265,44 @@ def _block(cfg: LMConfig, x, lp, kind_code: int, masks, cos, sin, positions,
         k_att, v_att = kk, vv
 
     t_kv = k_att.shape[1]
-    if cfg.q_chunk and s >= 2 * cfg.q_chunk:
+    scale = hd ** -0.5
+    if chunked:
         # long-sequence path: never materialize the (S, T) mask or logits
+        if cfg.attn_seq_axes:
+            k_att = L.constrain(k_att, cp + (None,))
+            v_att = L.constrain(v_att, cp + (None,))
         qpos = (positions.reshape(-1)[:s] if positions.shape[-1] == s
                 else torch.arange(s, device=x.device))
         kpos = torch.arange(t_kv, device=x.device)
         window = t_kv + 1 if kind_code == 0 else cfg.window
-        att = L.chunked_gqa_attention(q, k_att, v_att, qpos, kpos, window,
-                                      scale=hd ** -0.5,
-                                      softcap=cfg.attn_softcap,
-                                      q_chunk=cfg.q_chunk)
+        if L.is_dtensor(q):
+            att = L.attention_on_mesh(q, k_att, v_att, scale,
+                                      cfg.attn_softcap, qpos=qpos, kpos=kpos,
+                                      window=window, q_chunk=cfg.q_chunk)
+        else:
+            att = L.chunked_gqa_attention(q, k_att, v_att, qpos, kpos,
+                                          window, scale=scale,
+                                          softcap=cfg.attn_softcap,
+                                          q_chunk=cfg.q_chunk)
     else:
         mask = (masks["global"] if kind_code == 0
                 else masks.get("local", masks["global"]))
-        att = L.gqa_attention(q, k_att, v_att, mask, scale=hd ** -0.5,
-                              softcap=cfg.attn_softcap)
-    att = att.reshape(b, s, h * hd) @ lp["wo"]
+        if L.is_dtensor(q):
+            att = L.attention_on_mesh(q, k_att, v_att, scale,
+                                      cfg.attn_softcap, mask=mask)
+        else:
+            att = L.gqa_attention(q, k_att, v_att, mask, scale=scale,
+                                  softcap=cfg.attn_softcap)
+    if L.is_dtensor(att):
+        if L.split_dims(att, 1):  # context parallel: the sequence gathered
+            att = L.pin_batch(att)
+        # the heads merged on the local shard: DTensor's view would split
+        # the gradient back over heads that the "model" axis may not divide
+        local = att.to_local()
+        att = L.like(local.reshape(*local.shape[:2], -1), att)
+    else:
+        att = att.reshape(b, s, h * hd)
+    att = L.pin_batch(att @ L.tp_only(lp["wo"]))
     if cfg.gemma_norms:
         att = _norm(att, lp["post_attn_norm"], cfg)
     if cfg.residual_scale is not None:
@@ -266,11 +315,13 @@ def _block(cfg: LMConfig, x, lp, kind_code: int, masks, cos, sin, positions,
                          L.moe_capacity(s, cfg.top_k, cfg.n_experts,
                                         cfg.capacity_factor))
         mlp, aux = L.moe_ffn(m_in, lp["router"], lp["w_gate"], lp["w_up"],
-                             lp["w_down"], dims, cfg.activation)
+                             lp["w_down"], dims, cfg.activation,
+                             c_axes=cfg.moe_c_axes)
     else:
-        mlp = L.gated_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"],
-                          cfg.activation)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        mlp = L.pin_batch(L.gated_mlp(m_in, lp["w_gate"], lp["w_up"],
+                                      lp["w_down"], cfg.activation))
+        zero = L.replicated(
+            torch.zeros((), dtype=torch.float32, device=x.device), x)
         aux = {"moe_aux_loss": zero, "moe_dropped_frac": zero}
     if cfg.gemma_norms:
         mlp = _norm(mlp, lp["post_mlp_norm"], cfg)
@@ -279,8 +330,34 @@ def _block(cfg: LMConfig, x, lp, kind_code: int, masks, cos, sin, positions,
     return x + mlp, cache_kv, aux
 
 
+def _heads(y, n: int, hd: int, spec=None):
+    """The projection ``y`` (B, S, n * hd) as (B, S, n, hd).  On a mesh it
+    is first laid out by ``spec`` (context parallelism), else kept with
+    its heads over "model" when ``n`` divides that axis, else gathered
+    over "model": a reshape that splits a sharded dimension unevenly
+    leaves DTensor a strided layout it plans at great cost."""
+    b, s, _ = y.shape
+    if L.is_dtensor(y):
+        if spec is not None:
+            y = L.constrain(y, spec)
+        else:
+            names = tuple(y.device_mesh.mesh_dim_names)
+            m = y.device_mesh.size(names.index("model")) \
+                if "model" in names else 1
+            if n % m:
+                y = L.constrain(y, L.batch_spec(y))
+    return y.reshape(b, s, n, hd)
+
+
 def _embed(cfg: LMConfig, params, tokens):
-    x = params["embed"][tokens]
+    if L.is_dtensor(params["embed"]):
+        # the table gathered over its FSDP axes first (a lookup into a
+        # (vocab x d_model)-sharded table fails in DTensor's backward),
+        # then looked up vocabulary-parallel over "model"
+        x = L.pin_batch(L.embedding_on_mesh(L.tp_only(params["embed"]),
+                                            tokens))
+    else:
+        x = params["embed"][tokens]
     if cfg.embed_scale is not None:
         x = x * _as(cfg.embed_scale, x.dtype)
     return x
@@ -288,7 +365,8 @@ def _embed(cfg: LMConfig, params, tokens):
 
 def _unembed(cfg: LMConfig, params, x):
     x = _norm(x, params["final_norm"], cfg)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = (L.tp_only(params["embed"]).T if cfg.tie_embeddings
+         else L.tp_only(params["lm_head"]))
     logits = (x @ w).float()
     if cfg.logit_scale is not None:
         logits = logits * cfg.logit_scale
@@ -312,7 +390,8 @@ def forward(cfg: LMConfig, params, tokens: torch.Tensor,
     masks = ({"global": torch.ones((1, 1), dtype=torch.bool, device=dev)}
              if chunked else _layer_masks(cfg, s, s, device=dev))
     x = _embed(cfg, params, tokens)
-    aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    aux_sum = L.replicated(torch.zeros((), dtype=torch.float32, device=dev),
+                           x)
 
     def body(x, lp, kind):
         x, _, aux = _block(cfg, x, lp, kind, masks, cos, sin, positions)
@@ -336,13 +415,17 @@ def train_loss(cfg: LMConfig, params, tokens: torch.Tensor,
     logit is read by a gather where the reference sums an iota/where
     product: one non-zero term, the same value."""
     logits, aux = forward(cfg, params, tokens)
-    m = torch.amax(logits, dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
-    v = logits.shape[-1]
-    inside = (labels >= 0) & (labels < v)
-    picked = torch.gather(logits, -1, labels.clamp(0, v - 1).long()[..., None])
-    correct = torch.where(inside, picked[..., 0], 0.0)
-    ll = correct - lse
+    if L.is_dtensor(logits):
+        ll = L.log_likelihood_on_mesh(logits, labels)
+    else:
+        m = torch.amax(logits, dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+        v = logits.shape[-1]
+        inside = (labels >= 0) & (labels < v)
+        picked = torch.gather(logits, -1,
+                              labels.clamp(0, v - 1).long()[..., None])
+        correct = torch.where(inside, picked[..., 0], 0.0)
+        ll = correct - lse
     mask = labels >= 0
     loss = -torch.sum(torch.where(mask, ll, 0.0)) / torch.clamp(
         torch.sum(mask), min=1)

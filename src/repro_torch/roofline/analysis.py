@@ -1,8 +1,10 @@
-"""Roofline aggregation over the port's dry-run records, for one NVIDIA
-H100: the per-(arch x shape x mesh) three-term roofline table, the
-dominant term of each cell, and the MODEL_FLOPS / counted-FLOPs
-usefulness ratio — the reference's ``roofline/analysis.py`` over
-``repro_torch.configs``.
+"""Roofline aggregation over the port's dry-run records, priced at NVIDIA
+H100 data-sheet peaks: the per-(arch x shape x mesh) three-term roofline
+table (mesh ``card`` one H100, ``single`` the 16x16 pod, ``multi`` the
+2x16x16 multi-pod, each number one device's), the dominant term of each
+cell, the MODEL_FLOPS / counted-FLOPs usefulness ratio — the reference's
+``roofline/analysis.py`` over ``repro_torch.configs`` — and which of the
+cells that do not fit one card fit a device at 256 and at 512.
 
     PYTHONPATH=src python -m repro_torch.roofline.analysis \
         [--dir experiments/dryrun_torch] [--markdown out.md]
@@ -15,7 +17,7 @@ import glob
 import json
 import os
 
-from .collect import HBM_BW, ICI_BW, PEAK_FLOPS, roofline_terms
+from .collect import HBM_BW, ICI_BW, NDR_BW, PEAK_FLOPS, roofline_terms
 
 
 def model_flops(rec: dict) -> float | None:
@@ -93,10 +95,13 @@ def load_records(d: str) -> list:
 def table(recs: list) -> list:
     rows = []
     for r in recs:
-        if r["status"] == "skipped":
+        if r["status"] in ("skipped", "waits"):
             rows.append({"arch": r["arch"], "shape": r["shape"],
-                         "mesh": r["mesh"], "status": "SKIP",
-                         "note": r.get("skip_reason", "")[:60]})
+                         "mesh": r["mesh"],
+                         "status": "SKIP" if r["status"] == "skipped"
+                         else "WAITS",
+                         "note": r.get("skip_reason",
+                                       r.get("waits_for", ""))[:60]})
             continue
         if r["status"] != "ok":
             rows.append({"arch": r["arch"], "shape": r["shape"],
@@ -135,6 +140,52 @@ def to_markdown(rows: list) -> str:
     return "\n".join(out)
 
 
+_KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
+
+
+def mesh_table(recs: list) -> list:
+    """One row a cell traced on the reference's meshes: its GiB on one
+    card (when that record is there) and, at 256 (``single``) and 512
+    (``multi``) devices, a device's GiB, collective bytes by kind, the
+    dominant roofline term and whether a device fits one H100."""
+    by = {(r["arch"], r["shape"], r["mesh"]): r for r in recs
+          if r["status"] == "ok"}
+    rows = []
+    for a, s in sorted({(a, s) for a, s, m in by if m != "card"}):
+        row = {"arch": a, "shape": s,
+               "card": by.get((a, s, "card"), {}).get("per_device_hbm_gb")}
+        for mesh in ("single", "multi"):
+            r = by.get((a, s, mesh))
+            row[mesh] = None if r is None else {
+                "gib": r["per_device_hbm_gb"], "fits": r["fits_card"],
+                "coll": [r["collectives"]["bytes_by_kind"].get(k, 0)
+                         for k in _KINDS],
+                "dominant": roofline_terms(r)["dominant"]}
+        rows.append(row)
+    return rows
+
+
+def mesh_markdown(rows: list) -> str:
+    out = ["| arch | shape | GiB one card | GiB a device 256 / 512 | "
+           "collective GB a device at 256 (AG / RS / AR / A2A) | at 512 | "
+           "dominant 256 / 512 | fits 256 / 512 |",
+           "|---|---|---|---|---|---|---|---|"]
+
+    def pair(key, fmt):
+        return " / ".join("-" if r[m] is None else fmt(r[m][key])
+                          for m in ("single", "multi"))
+
+    for r in rows:
+        colls = [" / ".join(f"{b / 1e9:.3g}" for b in r[m]["coll"])
+                 if r[m] else "-" for m in ("single", "multi")]
+        out.append(f"| {r['arch']} | {r['shape']} | "
+                   f"{'-' if r['card'] is None else r['card']} | "
+                   f"{pair('gib', str)} | {colls[0]} | {colls[1]} | "
+                   f"{pair('dominant', str)} | "
+                   f"{pair('fits', lambda f: 'yes' if f else 'no')} |")
+    return "\n".join(out)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default="experiments/dryrun_torch")
@@ -148,12 +199,15 @@ def main() -> None:
     for r in ok:
         doms[r["dominant"]] = doms.get(r["dominant"], 0) + 1
     print(f"\n{len(ok)} ok cells; dominant terms: {doms}")
-    print(f"constants: one NVIDIA H100 80GB HBM3 (SXM, 700 W): "
-          f"{PEAK_FLOPS/1e12:.0f} TF/s bf16, {HBM_BW/1e9:.0f} GB/s HBM, "
-          f"{ICI_BW/1e9:.0f} GB/s NVLink (no collective on one card)")
+    meshes = mesh_markdown(mesh_table(load_records(args.dir)))
+    print("\nthe reference's meshes, a device:\n" + meshes)
+    print(f"constants (data sheets): one NVIDIA H100 80GB HBM3 (SXM, "
+          f"700 W): {PEAK_FLOPS/1e12:.0f} TF/s bf16, {HBM_BW/1e9:.0f} GB/s "
+          f"HBM; {ICI_BW/1e9:.0f} GB/s NVLink within 8 cards, "
+          f"{NDR_BW/1e9:.0f} GB/s NDR across nodes")
     if args.markdown:
         with open(args.markdown, "w") as f:
-            f.write(md + "\n")
+            f.write(md + "\n\n" + meshes + "\n")
 
 
 if __name__ == "__main__":

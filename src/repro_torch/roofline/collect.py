@@ -1,17 +1,24 @@
-"""Roofline inputs of one card from a cell's step: the twin of the
+"""Roofline inputs of one device from a cell's step: the twin of the
 reference's ``roofline/collect.py``.
 
 The reference reads a compiled XLA executable (``cost_analysis``,
 ``memory_analysis``, the optimized HLO's collectives).  The port has no
 HLO: :func:`analyze_step` runs the cell's step once on the meta device
 under ``op_cost`` and writes the reference's record keys from what it
-counts.  ``_shape_bytes`` and :func:`collective_bytes` are the
-reference's string functions, unchanged; :func:`roofline_terms` is the
-reference's model with the card's constants.
+counts: on a mesh one rank's (``n_devices``, ``mesh_shape``), with its
+collectives by kind and by mesh axis.  ``_shape_bytes`` and
+:func:`collective_bytes` are the reference's string functions,
+unchanged; :func:`roofline_terms` is the reference's model with the
+card's constants, each collective priced by the slowest link its axis
+spans.
 
-Hardware constants: one NVIDIA H100 80GB HBM3 (SXM) at its 700 W power
-limit, NVIDIA's data sheet — 989 TFLOP/s dense bfloat16, 3.35 TB/s HBM,
-NVLink 4 at 450 GB/s each way (no collective on one card: the term is 0).
+Hardware constants, NVIDIA's data sheets, not measurements: one NVIDIA
+H100 80GB HBM3 (SXM) at its 700 W power limit — 989 TFLOP/s dense
+bfloat16, 3.35 TB/s HBM; NVLink 4 at 450 GB/s each way between the 8
+cards of a node; across nodes one 400 Gb/s NDR InfiniBand port a card
+(50 GB/s).  Ranks fill nodes in row-major mesh order, so an axis whose
+stride times size exceeds 8 (the 16-way "model" axis, "data", "pod" of
+the production meshes) spans nodes and is priced at NDR.
 """
 
 from __future__ import annotations
@@ -22,7 +29,9 @@ from .op_cost import analyze
 
 PEAK_FLOPS = 989e12  # dense bfloat16, one H100 SXM
 HBM_BW = 3.35e12  # bytes/s, its HBM3
-ICI_BW = 450e9  # bytes/s, NVLink 4 each way (unused on one card)
+ICI_BW = 450e9  # bytes/s, NVLink 4 each way, within a node
+NDR_BW = 50e9  # bytes/s, 400 Gb/s NDR InfiniBand a card, across nodes
+CARDS_PER_NODE = 8
 CARD_BYTES = 80 * 2**30  # the card's device memory, as a cell must fit it
 
 _DTYPE_BYTES = {
@@ -79,21 +88,28 @@ def collective_bytes(hlo_text: str) -> dict:
             "total_bytes": sum(out.values())}
 
 
-def analyze_step(cell) -> dict:
+def analyze_step(cell, in_place_backward: bool = True) -> dict:
     """Everything the roofline needs from one run of ``cell``'s step
     (a ``launch.steps.Cell``, usually on the meta device), in the
-    reference's record keys, JSON-serializable."""
-    cost = analyze(cell.fn, cell.args, cell.device)
+    reference's record keys, JSON-serializable.  ``in_place_backward``:
+    see ``op_cost.OpCost``."""
+    cost = analyze(cell.fn, cell.args, cell.device, in_place_backward)
     live = cost["peak_bytes"]
+    coll = dict(cost["collectives"])
+    by_axis: dict = {}
+    for group, n in coll.pop("bytes_by_group").items():
+        axis = cell.axis_of_group.get(group, str(group))
+        by_axis[axis] = by_axis.get(axis, 0) + n
+    coll["bytes_by_axis"] = by_axis
     return {
-        "n_devices": 1,
+        "n_devices": cell.n_devices,
         "mesh_shape": dict(cell.mesh_shape),
         "total_flops": cost["flops"],
         "hlo_bytes": cost["traffic_bytes"],
         "n_ops": cost["n_ops"],
         "scan_flops": cost["flops"],
         "scan_traffic_bytes": cost["traffic_bytes"],
-        "collectives": cost["collectives"],
+        "collectives": coll,
         "loops": cost["loops"],
         "argument_size_in_bytes": cost["argument_bytes"],
         "output_size_in_bytes": cost["output_bytes"],
@@ -105,19 +121,38 @@ def analyze_step(cell) -> dict:
     }
 
 
+def link_bw(mesh_shape: dict, axis: str) -> float:
+    """Bytes/s of the slowest link a collective over ``axis`` crosses:
+    NVLink within a node, NDR across nodes."""
+    names, sizes = list(mesh_shape), list(mesh_shape.values())
+    if axis not in mesh_shape:
+        return ICI_BW
+    i = names.index(axis)
+    stride = 1
+    for n in sizes[i + 1:]:
+        stride *= n
+    return ICI_BW if stride * sizes[i] <= CARDS_PER_NODE else NDR_BW
+
+
 def roofline_terms(rec: dict, model_flops: float | None = None) -> dict:
     """The three-term roofline (seconds) from a dry-run record.
 
-    All numerators are one card's (``op_cost`` counts the step that
-    card runs); ``scan_flops``/``scan_traffic_bytes`` are read first, as
-    in the reference, and equal ``total_flops``/``hlo_bytes`` here."""
+    All numerators are one device's (``op_cost`` counts the step that
+    device runs); ``scan_flops``/``scan_traffic_bytes`` are read first,
+    as in the reference, and equal ``total_flops``/``hlo_bytes`` here.
+    Each axis's collective bytes go over its slowest link
+    (:func:`link_bw`)."""
     n = rec["n_devices"]
     flops = rec.get("scan_flops") or rec.get("total_flops", 0.0)
     bytes_hbm = rec.get("scan_traffic_bytes") or rec.get("hlo_bytes", 0.0)
-    coll = rec.get("collectives", {}).get("total_bytes", 0)
+    coll = rec.get("collectives", {})
+    by_axis = coll.get("bytes_by_axis")
+    if by_axis is None:
+        by_axis = {None: coll.get("total_bytes", 0)}
     t_compute = flops / PEAK_FLOPS
     t_memory = bytes_hbm / HBM_BW
-    t_coll = coll / ICI_BW
+    t_coll = sum(b / link_bw(rec.get("mesh_shape", {}), a)
+                 for a, b in by_axis.items())
     dominant = max(
         (("compute", t_compute), ("memory", t_memory),
          ("collective", t_coll)),

@@ -26,15 +26,30 @@ backward's too, and the recompute of ``torch.utils.checkpoint``):
   raises no peak when its output is born, as the in-place form writes
   into that input, which dies at once.
 
-One card has no collectives, and an eager step no ``while`` loops: both
-keys are kept, empty.
+On a mesh the step's tensors are DTensors and the counts are one
+rank's: an op on DTensors is passed on (``NotImplemented``) to DTensor's
+dispatch, whose local ops on this rank's shards come back through the
+mode and are counted; the global-shape runs DTensor's sharding
+propagation makes under a ``FakeTensorMode`` are not.  Collectives are
+counted by kind (all-gather, reduce-scatter, all-reduce, all-to-all),
+by count and by the bytes of what each returns to this rank (the
+reference's convention for its HLO's collectives), not as traffic.  A
+mesh of device type "cpu" (the fake group of
+``launch.mesh.reckoning_mesh``, or gloo) has DTensor stand an all-gather
+plus a chunk in for each all-to-all; while :func:`analyze` runs, that
+stand-in is wrapped so that it counts as the one all-to-all it stands
+for, its gathered temporary neither counted nor tracked.  An eager step
+has no ``while`` loops: that key is kept, empty.
 """
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -48,6 +63,17 @@ _NO_TRAFFIC = {
     aten.new_empty_strided.default, aten.set_.source_Storage_storage_offset,
 }
 
+# collectives by the reference's names
+_COLLECTIVE = {
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+}
+
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d", "_dtensor")
+
 # backward ops that autograd runs in place into their first input when no
 # Python dispatch mode is on
 _WRITTEN_IN_PLACE = {
@@ -60,11 +86,13 @@ _WRITTEN_IN_PLACE = {
 def _tensors(tree):
     """Every tensor of a tree of tensors, modules (their parameters and
     buffers), dicts, lists, tuples and named tuples."""
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, DTensor):
+        yield tree._local_tensor  # one rank's shard
+    elif isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, torch.nn.Module):
-        yield from tree.parameters()
-        yield from tree.buffers()
+        for t in (*tree.parameters(), *tree.buffers()):
+            yield from _tensors(t)
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _tensors(v)
@@ -79,11 +107,15 @@ def _nbytes(t: torch.Tensor) -> int:
 
 class OpCost(TorchDispatchMode):
     """Counts FLOPs, bytes moved, and the live bytes of the storages on
-    ``device``."""
+    ``device``.  ``in_place_backward=False`` reckons a step that itself
+    runs under a Python dispatch mode (``launch.mesh.
+    HostStagedCollectives``), where autograd's in-place steps run out of
+    place and each raises the peak."""
 
-    def __init__(self, device):
+    def __init__(self, device, in_place_backward: bool = True):
         super().__init__()
         self.device = torch.device(device)
+        self.in_place_backward = in_place_backward
         self.flops = 0
         self.traffic = 0
         self.ops = 0
@@ -91,6 +123,16 @@ class OpCost(TorchDispatchMode):
         self.peak = 0
         self._refs: dict = {}  # storage id -> (weakref, nbytes)
         self._in_place = False  # an op autograd would run in place
+        self._standing_in = False  # inside the all-to-all stand-in
+        self.coll_bytes: dict = {}
+        self.coll_counts: dict = {}
+        self.coll_groups: dict = {}  # group name -> bytes
+
+    def collective(self, kind: str, out, group) -> None:
+        n = sum(map(_nbytes, _tensors(out)))
+        self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + n
+        self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
+        self.coll_groups[group] = self.coll_groups.get(group, 0) + n
 
     def _ours(self, t) -> bool:
         return isinstance(t, torch.Tensor) and t.device.type == self.device.type
@@ -116,14 +158,27 @@ class OpCost(TorchDispatchMode):
                 if self._ours(t)}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # its local ops come back here
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self._standing_in or any(
+                isinstance(t, FakeTensor) for t in _tensors((args, out))):
+            return out  # a stand-in's inside, or sharding propagation
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            kind = _COLLECTIVE.get(func._overloadpacket.__name__)
+            if kind is not None:  # the group's name is the last argument
+                self.collective(kind, out, args[-1])
+                for t in _tensors(out):
+                    self.track(t)
+            return out  # a wait or a wrap: an alias
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
             self.flops += count(*args, **kwargs, out_val=out)
         ins = [t for t in _tensors((args, kwargs)) if self._ours(t)]
         outs = [t for t in _tensors(out) if self._ours(t)]
-        self._in_place = (func in _WRITTEN_IN_PLACE and len(outs) == 1
+        self._in_place = (self.in_place_backward
+                          and func in _WRITTEN_IN_PLACE and len(outs) == 1
                           and ins[0].shape == outs[0].shape
                           and ins[0].dtype == outs[0].dtype
                           and torch._C._current_graph_task_id() != -1)
@@ -136,7 +191,33 @@ class OpCost(TorchDispatchMode):
         return out
 
 
-def analyze(fn, args: tuple, device="meta") -> dict:
+@contextlib.contextmanager
+def _all_to_all_counted(cost: OpCost):
+    """DTensor's all-gather-plus-chunk stand-in for an all-to-all on a
+    "cpu" mesh, counted as the all-to-all (bytes: what it returns)."""
+    from torch.distributed.tensor import placement_types
+
+    real = placement_types.shard_dim_alltoall
+
+    def counted(tensor, gather_dim, shard_dim, mesh, mesh_dim):
+        cost._standing_in = True
+        try:
+            out = real(tensor, gather_dim, shard_dim, mesh, mesh_dim)
+        finally:
+            cost._standing_in = False
+        cost.collective("all-to-all", out, mesh.get_group(mesh_dim).group_name)
+        cost.track(out)
+        return out
+
+    placement_types.shard_dim_alltoall = counted
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = real
+
+
+def analyze(fn, args: tuple, device="meta",
+            in_place_backward: bool = True) -> dict:
     """Run ``fn(*args)`` once under :class:`OpCost` and return the
     reference's ``analyze_hlo`` keys (``flops``, ``traffic_bytes``,
     ``collectives``, ``loops``) plus the memory split:
@@ -145,19 +226,21 @@ def analyze(fn, args: tuple, device="meta") -> dict:
     ``alias_bytes`` (those that are), ``peak_bytes`` (the high-water mark
     of live storage, arguments included) and ``temp_bytes`` (the rest of
     the peak); ``n_ops``: the ops that moved data."""
-    cost = OpCost(device)
+    cost = OpCost(device, in_place_backward)
     for t in _tensors(args):
         if cost._ours(t):
             cost.track(t)
     arg_bytes = cost.live
     arg_ids = cost.storage_ids(args)
-    with cost:
+    with _all_to_all_counted(cost), cost:
         out = fn(*args)
     out_bytes = alias_bytes = 0
     seen = set()
     for t in _tensors(out):
+        if not cost._ours(t):
+            continue
         st = t.untyped_storage()
-        if not cost._ours(t) or st._cdata in seen:
+        if st._cdata in seen:
             continue
         seen.add(st._cdata)
         if st._cdata in arg_ids:
@@ -168,8 +251,10 @@ def analyze(fn, args: tuple, device="meta") -> dict:
     return {
         "flops": float(cost.flops),
         "traffic_bytes": float(cost.traffic),
-        "collectives": {"bytes_by_kind": {}, "counts_by_kind": {},
-                        "total_bytes": 0},
+        "collectives": {"bytes_by_kind": dict(cost.coll_bytes),
+                        "counts_by_kind": dict(cost.coll_counts),
+                        "total_bytes": sum(cost.coll_bytes.values()),
+                        "bytes_by_group": dict(cost.coll_groups)},
         "loops": [],
         "n_ops": cost.ops,
         "argument_bytes": arg_bytes,

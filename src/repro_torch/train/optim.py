@@ -7,13 +7,20 @@ orders them), list or tuple of tensors, walked as the checkpoint module
 walks it; a flat ``dict(named_parameters())`` is one.  Optimizer state
 lives in float32 whatever the parameters' dtype.  ``torch.optim.AdamW``
 with ``clip_grad_norm_`` is another function (its clip epsilon is 1e-6,
-and it reports no metrics), so it is not used."""
+and it reports no metrics), so it is not used.
+
+On a mesh the leaves are DTensors: each gradient is first laid out like
+its parameter (a partial sum reduced), the clip reads the *global* norm
+(every rank clips by the same scale), and the update, elementwise, runs
+on each rank's local shards (a flat view of a sharded DTensor is not
+expressible, so the in-place slices stay local)."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..checkpoint.checkpoint import _flatten_with_paths, _unflatten
 
@@ -46,16 +53,31 @@ def adamw_init(params) -> AdamWState:
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
 
-    def f32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def f32(p):  # a DTensor's moments keep its placements
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
 
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       mu=tree_map(f32, params), nu=tree_map(f32, params))
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
+    """The norm of every leaf together; over DTensor leaves the global
+    one (a plain tensor, the same on every rank)."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
                           for leaf in tree_leaves(tree)))
+    return norm.full_tensor() if isinstance(norm, DTensor) else norm
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _laid_out_like(g, p):
+    """A DTensor gradient in its parameter's placements."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
@@ -70,6 +92,9 @@ def adamw_update(grads, state: AdamWState, params, lr, *,
     at most ``INPLACE_CHUNK`` elements at a time, so the update holds no
     second copy of the state; the values are the same, and the returned
     trees are ``params`` and ``state``'s own."""
+    grads = tree_unflatten(grads, [
+        _laid_out_like(g, p)
+        for g, p in zip(tree_leaves(grads), tree_leaves(params))])
     gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -85,8 +110,8 @@ def adamw_update(grads, state: AdamWState, params, lr, *,
         delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
 
-    leaves = zip(tree_leaves(grads), tree_leaves(state.mu),
-                 tree_leaves(state.nu), tree_leaves(params))
+    leaves = zip(*(map(_local, tree_leaves(t))
+                   for t in (grads, state.mu, state.nu, params)))
     metrics = {"grad_norm": gnorm, "clip_scale": scale}
     if inplace:  # elementwise: slices of flat views give the same values
         for g, m, v, p in leaves:
@@ -97,7 +122,15 @@ def adamw_update(grads, state: AdamWState, params, lr, *,
                 m[sl], v[sl], p[sl] = new_m, new_v, new_p
         return params, AdamWState(step, state.mu, state.nu), metrics
     out = [upd(*xs) for xs in leaves]
-    new_params = tree_unflatten(params, [o[0] for o in out])
-    new_mu = tree_unflatten(state.mu, [o[1] for o in out])
-    new_nu = tree_unflatten(state.nu, [o[2] for o in out])
+
+    def rewrap(tree, i):  # local results as DTensors where the leaves were
+        return tree_unflatten(tree, [
+            DTensor.from_local(o[i], t.device_mesh, t.placements,
+                               run_check=False)
+            if isinstance(t, DTensor) else o[i]
+            for o, t in zip(out, tree_leaves(tree))])
+
+    new_params = rewrap(params, 0)
+    new_mu = rewrap(state.mu, 1)
+    new_nu = rewrap(state.nu, 2)
     return new_params, AdamWState(step, new_mu, new_nu), metrics

@@ -158,3 +158,80 @@ def test_a_train_step_frees_its_gradients_on_return(monkeypatch):
                 del out
         finally:
             gc.enable()
+
+
+# ---------------------------------------------------------------------- #
+# restore onto any mesh (the reference's restore_sharded with shardings)
+# ---------------------------------------------------------------------- #
+
+RESTORE_MESHES = (((2, 2, 2), ("pod", "data", "model")),
+                  ((4, 2), ("data", "model")))
+
+
+def _restore_rank(rank, world, ckpt, shape, axes):
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import restore_sharded
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import shardings as S
+
+    torch.set_num_threads(1)
+    mesh = M.make_test_mesh(shape, axes, device="cpu")
+    cfg = configs.get_arch("gemma2-2b").smoke
+    specs = S.lm_param_specs(cfg, mesh)
+    like = _lm_tree()
+    got = restore_sharded(ckpt, 1, like, shardings=(specs, mesh))
+    out = {}
+    for path, leaf, spec in _walk_specs(got, specs):
+        out[path] = (list(leaf.placements) == S.placements(spec, mesh),
+                     leaf.full_tensor().numpy())
+    return out
+
+
+def _lm_tree():
+    import torch
+
+    from repro_torch import configs, convert
+    from repro_torch.models import transformer
+
+    cfg = configs.get_arch("gemma2-2b").smoke
+    return convert.lm_params_to_numpy(
+        cfg, transformer.init_params(cfg, torch.Generator().manual_seed(3),
+                                     "cpu"))
+
+
+def _walk_specs(tree, specs, prefix=""):
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _walk_specs(tree[key], specs[key], f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", tree[key], specs[key]
+
+
+@pytest.fixture(scope="module")
+def lm_save(tmp_path_factory):
+    """One save of gemma2-2b's smoke tree (the reference's stacked
+    layout)."""
+    d = str(tmp_path_factory.mktemp("lm_save"))
+    tree = _lm_tree()
+    save_checkpoint(d, 1, tree)
+    return d, tree
+
+
+@pytest.mark.parametrize("shape,axes", RESTORE_MESHES)
+def test_restore_sharded_onto_any_mesh(lm_save, shape, axes):
+    """The one save restored onto an 8-rank gloo mesh of each shape:
+    every leaf a DTensor placed by its spec, whole equal to the saved
+    leaf."""
+    from repro_torch.launch.ranks import run_ranks
+
+    ckpt, tree = lm_save
+    ranks = run_ranks(_restore_rank, 8, (ckpt, shape, axes),
+                      timeout=240, init_timeout=120)
+    flat = {p: leaf for p, leaf, _ in _walk_specs(tree, tree)}
+    for got in ranks:
+        assert got.keys() == flat.keys()
+        for path, (placed, whole) in got.items():
+            assert placed, path
+            assert np.array_equal(whole, flat[path]), path

@@ -2,8 +2,12 @@
 cell kind builds on the meta device at the reference's input shapes and
 dtypes, the records carry the reference's keys, skips are the
 reference's, a cell past the card's 80 GiB is ``ok`` and says so, and
-``run_cell`` writes only where it is told."""
+``run_cell`` writes only where it is told.  On the reference's meshes
+(``--mesh single``, ``multi``, ``both``) the LM and BST cells are reckoned
+one device of 256 or 512 under the reference's record names, and the GNN
+and engine cells are recorded as waiting."""
 
+import dataclasses
 import json
 import os
 
@@ -43,11 +47,11 @@ def test_run_cell_writes_only_its_record(tmp_path, monkeypatch):
     out = tmp_path / "out"
     rec = dryrun.run_cell("bst", "serve_p99", str(out))
     assert os.listdir(cwd) == []
-    assert os.listdir(out) == ["bst__serve_p99__single.json"]
-    with open(out / "bst__serve_p99__single.json") as f:
+    assert os.listdir(out) == ["bst__serve_p99__card.json"]
+    with open(out / "bst__serve_p99__card.json") as f:
         assert json.load(f) == json.loads(json.dumps(rec))
     assert RECORD_KEYS <= set(rec) and rec["status"] == "ok"
-    assert rec["mesh"] == "single" and rec["n_devices"] == 1
+    assert rec["mesh"] == "card" and rec["n_devices"] == 1
     assert rec["collectives"]["total_bytes"] == 0 and rec["fits_card"]
 
 
@@ -71,17 +75,81 @@ def test_a_reduced_cell_records_its_cut(tmp_path):
     assert rec["dims"] == {"seq_len": 4096, "global_batch": 256}
 
 
-def test_main_refuses_a_multi_card_mesh(capsys):
-    with pytest.raises(SystemExit):
-        dryrun.main(["--all", "--mesh", "multi"])
-    assert "15(c)" in capsys.readouterr().err
+MESH_DEVICES = {"single": (256, {"data": 16, "model": 16}),
+                "multi": (512, {"pod": 2, "data": 16, "model": 16})}
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi", "both"])
+def test_main_reckons_lm_and_bst_cells_on_the_references_meshes(
+        tmp_path, capsys, mesh):
+    meshes = ["single", "multi"] if mesh == "both" else [mesh]
+    for arch, shape in (("gemma2-2b", "decode_32k"), ("bst", "serve_p99")):
+        dryrun.main(["--arch", arch, "--shape", shape, "--mesh", mesh,
+                     "--out", str(tmp_path)])
+        assert f"{len(meshes)} ok, 0 skipped, 0 waits, 0 failed" in \
+            capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        f"{a}__{s}__{m}.json" for a, s in (("gemma2-2b", "decode_32k"),
+                                          ("bst", "serve_p99"))
+        for m in meshes)
+    for m in meshes:
+        with open(tmp_path / f"gemma2-2b__decode_32k__{m}.json") as f:
+            rec = json.load(f)
+        n, shape = MESH_DEVICES[m]
+        assert RECORD_KEYS <= set(rec) and rec["status"] == "ok"
+        assert rec["mesh"] == m and rec["n_devices"] == n
+        assert rec["mesh_shape"] == shape and rec["fits_card"]
+        assert rec["collectives"]["total_bytes"] > 0
+        # one device's: the KV cache (time over "model", batch over the
+        # rest) is a 1/n of the whole, within the step's other inputs
+        cfg = get_arch("gemma2-2b").config
+        cache = 2 * cfg.n_layers * 128 * 32768 * cfg.n_kv_heads \
+            * cfg.head_dim * 2
+        assert cache / n <= rec["argument_size_in_bytes"] < 1.2 * cache / n
+
+
+def test_gnn_and_engine_cells_wait_on_a_mesh(tmp_path, capsys):
+    dryrun.main(["--arch", "gatedgcn", "--mesh", "multi", "--out",
+                 str(tmp_path)])
+    dryrun.main(["--arch", "cpqx-engine", "--mesh", "single", "--out",
+                 str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "0 ok, 0 skipped, 4 waits, 0 failed" in out
+    assert "0 ok, 0 skipped, 2 waits, 0 failed" in out
+    with open(tmp_path / "gatedgcn__ogb_products__multi.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "waits" and "16(b)" in rec["waits_for"]
+
+
+def test_gnn_and_engine_cells_refuse_a_mesh():
+    from repro_torch.launch.mesh import reckoning_mesh
+
+    with reckoning_mesh((2, 2), ("data", "model")) as mesh:
+        for arch in ("egnn", "cpqx-engine"):
+            spec = get_arch(arch)
+            with pytest.raises(NotImplementedError, match="16\\(b\\)"):
+                build_cell(spec, spec.shapes[0], mesh=mesh)
+
+
+def test_a_tiny_batch_splits_the_kv_time_over_every_axis(tmp_path):
+    """The reference's tiny-batch branch: gemma2-2b's ``long_500k`` (one
+    sequence, a 524 288-token cache) on 512 devices keeps the batch whole
+    and splits the cache's time over all three axes."""
+    rec = dryrun.run_cell("gemma2-2b", "long_500k", str(tmp_path),
+                          multi_pod=True, n_layers=2)
+    assert rec["status"] == "ok" and rec["n_devices"] == 512
+    cfg = dataclasses.replace(get_arch("gemma2-2b").config, n_layers=2)
+    cache = 2 * 2 * 524288 * cfg.n_kv_heads * cfg.head_dim * 2
+    params = cfg.param_count() * 2  # bfloat16, over 256 devices at least
+    assert cache / 512 <= rec["argument_size_in_bytes"] < cache / 512 \
+        + params / 256 + 2**20
 
 
 def test_main_writes_an_arch_and_skips_existing(tmp_path, capsys):
     dryrun.main(["--arch", "bst", "--out", str(tmp_path)])
     assert sorted(os.listdir(tmp_path)) == sorted(
-        f"bst__{s.name}__single.json" for s in get_arch("bst").shapes)
-    assert "4 ok, 0 skipped, 0 failed" in capsys.readouterr().out
+        f"bst__{s.name}__card.json" for s in get_arch("bst").shapes)
+    assert "4 ok, 0 skipped, 0 waits, 0 failed" in capsys.readouterr().out
     dryrun.main(["--arch", "bst", "--shape", "serve_p99", "--out",
                  str(tmp_path), "--skip-existing"])
     assert "[skip existing] bst serve_p99" in capsys.readouterr().out
