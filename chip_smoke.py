@@ -155,12 +155,30 @@ Phases, each printed on its own lines:
                  unsharded step on the card (run first, in the
                  parent), each rank's step peak to the cell reckoned over
                  a fake 4-rank group (RECKON_BAND);
+25. mesh_cells — the GNN and engine cells on the same (1, 2, 2) mesh, in
+                 phase 23's ranks after phase 24, every collective staged
+                 through host memory: (a) EGNN at its published config
+                 (4 layers, d_hidden 64, d_feat 602) on one seeded
+                 minibatch_lg batch drawn by the port's sampler (169 984
+                 nodes, 168 960 edges padded; a quarter of each a rank,
+                 the parameters replicated), two gnn_steps at lr 1e-3:
+                 each rank's losses, first step's parameters and rows of
+                 the output held to the unsharded steps on the card (run
+                 in the parent), every rank's parameters the same, its
+                 step peak to the cell reckoned over a fake 4-rank group
+                 (RECKON_BAND) and its staged bytes by kind to the
+                 reckoning's; (b) build_64m on each rank's shard of phase
+                 21's layout through distributed.MeshExchange over the
+                 mesh's flattened group, equal to phase 21's and phase
+                 23(b)'s shard bit for bit, then timed once; (c) query_s on
+                 each rank's shard of phase 21's I_c2p, equal to phase 21's
+                 shard bit for bit;
    then the kernels again, on the built index's own arrays and on the inputs
    the paths gave them, with their times.
 
-Each path (phases 4-5, 6, 7, 8's two services, 9 to 24) is driven with the
-launch counts set to 0 just before it and read just after (phase 24: its
-parent half, then in each rank just before its half); a path that never
+Each path (phases 4-5, 6, 7, 8's two services, 9 to 25) is driven with the
+launch counts set to 0 just before it and read just after (phases 24 and
+25: the parent half, then in each rank just before its half); a path that never
 launched one of its kernels fails.  The GNN models' kernel set is empty
 (their substrate op is index_add, and no architecture calls edge_softmax):
 phase 16 fails if they launch any; the features driver's CPQx build must
@@ -169,8 +187,10 @@ too (attention, MoE dispatch and EmbeddingBag are einsums, a stable sort
 and index_add, as they are XLA ops in the reference): phases 17 and 18
 fail if any of the four kernels launches, and so do phases 19-22 (the
 train steps' autograd; the engine cells' relational.py operators; the
-meta traces and the compress check's torch ops), and 24 (the sharded LM
-step's DTensor ops and autograd, in the parent and in every rank).  A graph replay adds the launches its
+meta traces and the compress check's torch ops), 24 (the sharded LM
+step's DTensor ops and autograd, in the parent and in every rank) and 25
+(the sharded GNN step's index_add and autograd, the engine cells'
+relational.py operators).  A graph replay adds the launches its
 capture recorded, so the counts are the kernels that ran.  The cluster's
 kernels run in its worker processes, which report their launches at each
 CHECKPOINT barrier; phase 15 sums those reports, and phase 23 sums its
@@ -2668,9 +2688,9 @@ def engine_phase(dev, shard_dir: Path) -> dict:
     sorted lists of 65 536 lookup classes; each shard's result equals its
     slice filtered by numpy ``isin``, in order.  No hand-written kernel is
     on this path (the join is ``relational.expansion_join``'s torch ops,
-    as it is jnp ops in the reference).  For phase 23 each shard's
-    ``build_64m`` inputs are written under ``shard_dir`` and each shard's
-    output recorded by :func:`shard_digest`."""
+    as it is jnp ops in the reference).  For phases 23 and 25 each
+    shard's inputs are written under ``shard_dir`` and each shard's
+    outputs recorded by :func:`shard_digest`."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -2723,10 +2743,13 @@ def engine_phase(dev, shard_dir: Path) -> dict:
     del laid
     t0 = time.perf_counter()
     shard_dir.mkdir(parents=True, exist_ok=True)
-    for i in range(s):  # phase 23's ranks read their shard from these
-        for side, blk, cnt in (("a", ablk, an), ("b", bblk, bn)):
+    for i in range(s):  # phase 23's and 25's ranks read their shard here
+        for side, blk, cnt in (("a", ablk, an), ("b", bblk, bn),
+                               ("c", cblk, cn)):
             np.save(shard_dir / f"{side}{i}.npy", blk[i])
             np.save(shard_dir / f"{side}n{i}.npy", cnt[i:i + 1])
+    np.save(shard_dir / "ca.npy", ca)
+    np.save(shard_dir / "cb.npy", cb)
     t_files = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2744,8 +2767,8 @@ def engine_phase(dev, shard_dir: Path) -> dict:
         f"(v, m, u uniform over {n} ids, the third column over {n_seqs}) and "
         f"an I_c2p of {n} pairs over {n_cls} classes drawn in {t_gen:.1f} s, "
         f"laid out by shard_relation ({s} x {cap} rows a relation; a by v, b "
-        f"by u, I_c2p by v) in {t_shard:.1f} s, each shard's build inputs "
-        f"written for phase 23 in {t_files:.1f} s; reckoned: inputs, "
+        f"by u, I_c2p by v) in {t_shard:.1f} s, each shard's inputs "
+        f"written for phases 23 and 25 in {t_files:.1f} s; reckoned: inputs, "
         f"exchange buckets of "
         f"{bucket} rows a side and {4 * per} output rows a shard "
         f"{reckon / 2**30:.2f} GiB before the sorts' keys and permutations")
@@ -2830,6 +2853,8 @@ def engine_phase(dev, shard_dir: Path) -> dict:
             fail(f"engine query_s: shard {i}'s {pn[i]} rows differ from its "
                  f"slice of I_c2p filtered by isin ({len(keep)} rows)")
     t_check = time.perf_counter() - t0
+    query_digests = [shard_digest([pv[i], pu[i]], pn[i], False, R.SENTINEL)
+                     for i in range(s)]
     query_ms = float(np.median(times))
     pred = ENGINE_PREDICTED["query_s"]
     say(f"[engine] query_s: {len(ca)} and {len(cb)} lookup classes "
@@ -2849,7 +2874,8 @@ def engine_phase(dev, shard_dir: Path) -> dict:
                 query_rows=int(pn.sum()), query_peak_gib=query_peak / 2**30,
                 build_cell_gib=(build_peak - resident) / 2**30,
                 query_cell_gib=(query_peak - q_resident) / 2**30,
-                block_rows=cap, digests=digests, build_shape=build)
+                block_rows=cap, digests=digests, build_shape=build,
+                query_digests=query_digests, query_shape=query)
 
 
 # ---------------------------------------------------------------------- #
@@ -3247,6 +3273,19 @@ def pg_rank(rank: int, world: int, job: dict) -> dict:
         out["d"] = mesh_train_rank(rank, job, dev)
         out["d"]["launches"] = {k: m.launches for k, m in mods.items()}
         out["d"]["s"] = time.perf_counter() - t0
+
+    # (e) phase 25: the GNN and engine cells on the mesh, counts from 0
+    if job.get("mesh_cells"):
+        mods = {"sorted_member_mask": sorted_intersect,
+                "expand_join_gather": expand_join,
+                "fingerprint_rows": fingerprint,
+                "segment_softmax": segment_softmax}
+        for mod in mods.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        out["e"] = mesh_cells_rank(rank, job, dev)
+        out["e"]["launches"] = {k: m.launches for k, m in mods.items()}
+        out["e"]["s"] = time.perf_counter() - t0
     out["maxrss_gib"] = resource.getrusage(
         resource.RUSAGE_SELF).ru_maxrss / 2**20
     out["s"] = time.perf_counter() - t_rank
@@ -3293,7 +3332,8 @@ def process_group_phase(dev, kind: str, job: dict, sh13: dict,
                         for k in sorted(g)} for s in range(n)])
     del g, state, mean
     job = dict(job, device=None if dev.type == "cuda" else str(dev),
-               engine_shape=engine21["build_shape"])
+               engine_shape=engine21["build_shape"],
+               query_shape=engine21["query_shape"])
     # the host's available memory, sampled while the ranks run
     avail, stop = [host_available_gib()], threading.Event()
 
@@ -3410,9 +3450,10 @@ def process_group_phase(dev, kind: str, job: dict, sh13: dict,
     say(f"[process_group] kernel launches in the ranks "
         + ", ".join(f"{r['launches']}" for r in results)
         + f"; phase {phase_s:.1f} s (predicted {PG_PREDICTED['phase_s']} s"
-        + (f"; phase 24's part of it in the ranks "
-           f"{max(r['d']['s'] for r in results):.1f} s)" if "d" in results[0]
-           else ")"))
+        + "".join(f"; phase {p}'s part of it in the ranks "
+                  f"{max(r[k]['s'] for r in results):.1f} s"
+                  for p, k in ((24, "d"), (25, "e")) if k in results[0])
+        + ")")
     return counts, results
 
 
@@ -3715,6 +3756,351 @@ def mesh_train_report(mt: dict, results: list) -> None:
             f"(x{d['peak_gib'] / want:.4f}); set-up {d['setup_s']:.1f} s, "
             f"comparison {d['compare_s']:.1f} s, the rank's phase "
             f"{d.get('s', 0):.1f} s; predicted {MT_PREDICTED}")
+
+
+# ---------------------------------------------------------------------- #
+# 25. mesh_cells: the GNN and engine cells on the mesh, in phase 23's ranks
+# ---------------------------------------------------------------------- #
+
+MC_ARCH = "egnn"  # its published config: 4 layers, d_hidden 64
+MC_SHAPE = "minibatch_lg"  # d_feat 602; 169 984 nodes, 168 960 edges padded
+MC_LR = 1e-3  # gnn_cell's
+MC_STEPS = 2
+MC_TOL = 1e-4  # each rank vs the unsharded step on the card
+# written before the first chip run of this phase (PERF.md §6):
+# GNN step ms at 4 ranks, host-staged collective GB a step a rank, peak
+# GiB a rank, build_64m through MeshExchange ms, the phase's seconds
+MC_PREDICTED = {"step_ms": (1_000, 4_000), "coll_gb": (0.454, 0.455),
+                "peak_gib": (0.72, 1.03), "build_ms": (2_500, 8_000),
+                "phase_s": (30, 60)}
+
+
+def mc_config():
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    spec = get_arch(MC_ARCH)
+    return dataclasses.replace(spec.config,
+                               d_in=spec.shape(MC_SHAPE).dims["d_feat"])
+
+
+def mesh_cells_prepare(dev, root: Path) -> dict:
+    """Phase 25's parent half: one seeded ``minibatch_lg`` batch drawn by
+    the port's sampler (phase 16's graph and fanout, written as host
+    arrays for the ranks), ``mc_config()``'s seeded parameters, the
+    unsharded ``gnn_step``s on the card (losses, grad norms, after the
+    first every parameter and where its gradient is at least
+    ``STEP_DETERMINED``, after the last the output), and the same cell
+    reckoned over a fake 4-rank group on the meta device."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.data.sampler import random_csr, sample_fanout
+    from repro_torch.launch.mesh import reckoning_mesh
+    from repro_torch.launch.steps import build_cell, gnn_step
+    from repro_torch.models import gnn as G
+    from repro_torch.roofline.collect import analyze_step
+    from repro_torch.train.optim import adamw_init
+
+    import copy
+
+    t0 = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    cfg = mc_config()
+    spec = get_arch(MC_ARCH)
+    shape = spec.shape(MC_SHAPE)
+    csr = random_csr(GNN_GRAPH[0], avg_degree=GNN_GRAPH[1], seed=SEED)
+    seeds = np.random.default_rng(SEED).choice(GNN_GRAPH[0], GNN_SEEDS,
+                                               replace=False)
+    sub = sample_fanout(csr, seeds, GNN_FANOUT, seed=SEED)
+    del csr
+    rng = np.random.default_rng(SEED + 25)
+    arrs = gnn_host_graph(shape, rng, sub)
+    n, e = len(arrs["node_mask"]), len(arrs["senders"])
+    if n % PG_RANKS or e % PG_RANKS:  # the sampler pads to the cell's sizes
+        fail(f"mesh_cells: {n} nodes, {e} edges do not divide {PG_RANKS}")
+    arrs["targets"] = rng.standard_normal((n, cfg.d_out), dtype=np.float32)
+    for key, arr in arrs.items():
+        if isinstance(arr, np.ndarray):
+            np.save(root / f"g.{key}.npy", arr)
+    params = G.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           dev)
+    # copied: on the CPU the host arrays would share the parameters' storage
+    tree = copy.deepcopy(convert.gnn_params_to_numpy(cfg, params))
+    g = gnn_batch(G, cfg, arrs, dev)
+    targets = torch.from_numpy(arrs["targets"]).to(dev)
+    opt = adamw_init(dict(params.named_parameters()))
+    step = gnn_step(cfg, lr=MC_LR, device=dev)
+    losses, norms, scales = [], [], {}
+    for i in range(MC_STEPS):
+        params, opt, m = step(params, opt, g, targets)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i == 0:  # the first step's leaves, where |g| >= STEP_DETERMINED
+            for name, p in params.named_parameters():
+                np.save(root / f"s1.{name}.npy", p.detach().cpu().numpy())
+                np.save(root / f"sure1.{name}.npy", (
+                    opt.mu[name].abs() / 0.1 >= STEP_DETERMINED).cpu().numpy())
+                scales[name] = max(float(p.detach().abs().max()), 1e-30)
+    with torch.no_grad():
+        out = G.apply(cfg, params, g)
+    np.save(root / "out.npy", out.cpu().numpy())
+    out_scale = float(out.abs().max())
+    del params, opt, step, g, targets, m, out
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with reckoning_mesh(*MT_MESH) as mesh:  # the batch's sizes: the cell's
+        rec = analyze_step(build_cell(spec, shape, "meta", mesh=mesh,
+                                      pad_nodes=n, pad_edges=e),
+                           in_place_backward=False)  # the ranks run a mode
+    return {"dir": str(root), "tree": tree, "losses": losses,
+            "grad_norms": norms, "scales": scales, "out_scale": out_scale,
+            "n": n, "e": e, "real": (int(sub.node_mask.sum()),
+                                     int(sub.edge_mask.sum())),
+            "reckoned_gib": rec["per_device_hbm_bytes"] / 2**30,
+            "reckoned_coll": rec["collectives"], "ref_s": t_ref,
+            "reckon_s": time.perf_counter() - t0}
+
+
+def _moved(now: dict, before: dict) -> dict:
+    """The counts by kind that grew since ``before``, by how much."""
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
+
+
+def mesh_cells_rank(rank: int, job: dict, dev) -> dict:
+    """Phase 25 in one of phase 23's ranks, on a ``MT_MESH`` DeviceMesh
+    over the group, every collective staged through host memory
+    (``launch.mesh.HostStagedCollectives``).  (a) ``MC_STEPS``
+    ``gnn_step``s of ``mc_config()`` on the parent's batch laid out by
+    ``launch.steps.gnn_laid_out`` (node and edge rows over every axis,
+    the parameters replicated): losses, grad norms, the first step's
+    parameters against the unsharded step's, the rank's rows of the
+    output after the last, a step's staged collectives and peak device
+    memory (less what the rank held before the cell).  (b) ``build_64m``
+    on the rank's shard of phase 21's layout through
+    ``distributed.MeshExchange`` over the mesh's flattened group: its
+    shard's digest, then one timed step.  (c) ``query_s`` on the rank's
+    shard of phase 21's ``I_c2p``: its digest."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.core import distributed as D
+    from repro_torch.core import relational as R
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch.steps import (engine_build_step,
+                                          engine_query_step, gnn_laid_out,
+                                          gnn_step)
+    from repro_torch.models import gnn as G
+    from repro_torch.train.optim import adamw_init
+
+    mc = job["mesh_cells"]
+    root = Path(mc["dir"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    staged = M.HostStagedCollectives(dev.type)
+    t_set = time.perf_counter()
+    cfg = mc_config()
+    mesh = M.make_test_mesh(*MT_MESH, device=job["device"])
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    params = convert.gnn_params_from_numpy(cfg, mc["tree"], device=dev)
+    arrs = {f.name[2:-4]: np.load(f) for f in sorted(root.glob("g.*.npy"))}
+    arrs["n_graphs"] = 1
+    g, targets = gnn_laid_out(gnn_batch(G, cfg, arrs, dev), torch.from_numpy(
+        arrs["targets"]).to(dev), mesh)
+    del arrs
+    params = S.distribute_tree(params, S.gnn_param_specs(params, mesh), mesh)
+    opt = adamw_init(dict(params.named_parameters()))
+    step = gnn_step(cfg, lr=MC_LR, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    a = {"losses": [], "grad_norms": [], "ms": [],
+         "setup_s": time.perf_counter() - t_set}
+    for i in range(MC_STEPS):
+        dist.barrier()
+        calls0, bytes0 = dict(staged.calls), dict(staged.bytes)
+        t0 = time.perf_counter()
+        with staged:
+            params, opt, m = step(params, opt, g, targets)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+        sync()
+        a["ms"].append(1e3 * (time.perf_counter() - t0))
+        a["losses"].append(loss)
+        a["grad_norms"].append(norm)
+        if i:
+            continue
+        a["calls_a_step"] = _moved(staged.calls, calls0)
+        a["bytes_a_step"] = _moved(staged.bytes, bytes0)
+        a["peak_gib"] = ((torch.cuda.memory_stats(dev)[
+            "allocated_bytes.all.peak"] - base) / 2**30
+            if dev.type == "cuda" else 0.0)
+        worst = {"sure": 0.0, "any": 0.0}
+        for name, p in params.named_parameters():
+            mine = p.to_local().detach().cpu().numpy().astype(np.float64)
+            diff = np.abs(mine - np.load(root / f"s1.{name}.npy"))
+            sure = np.load(root / f"sure1.{name}.npy")
+            worst["sure"] = max(worst["sure"], float(
+                diff[sure].max(initial=0)) / mc["scales"][name])
+            worst["any"] = max(worst["any"], float(diff.max()))
+        a["errors"] = worst
+    with torch.no_grad(), staged:
+        rows = G.RowShards.of(g)
+        out = G.apply(cfg, rows.local_params(params), rows.local_graph(g),
+                      rows).cpu().numpy()
+    lo = rank * out.shape[0]
+    want = np.load(root / "out.npy", mmap_mode="r")[lo:lo + out.shape[0]]
+    a["out_err"] = float(np.abs(out - want).max()) / mc["out_scale"]
+    a["params"] = digest(*(p.to_local() for p in params.parameters()))
+    a["replicated"] = all(all(pl.is_replicate() for pl in p.placements)
+                          for p in params.parameters())
+    a["staged"] = {"staged_bytes": staged.staged_bytes,
+                   "gloo_s": staged.seconds}
+    del params, opt, step, g, targets, out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) build_64m through MeshExchange on the rank's shard
+    shmesh = D.mesh_of_device_mesh(mesh, dev)
+    args = []
+    for side in ("a", "b"):
+        blk = np.load(Path(job["engine_dir"]) / f"{side}{rank}.npy")
+        cnt = np.load(Path(job["engine_dir"]) / f"{side}n{rank}.npy")
+        args += [torch.from_numpy(np.ascontiguousarray(blk[:, j]))[None].to(dev)
+                 for j in range(3)] + [torch.from_numpy(cnt).to(dev)]
+        del blk
+    build = engine_build_step(None, job["engine_shape"], shmesh)
+    calls0, bytes0 = dict(staged.calls), dict(staged.bytes)
+    with staged:
+        cols, count, ovf = build(*args)
+    sync()
+    b = {"digest": shard_digest([c[0] for c in cols], count[0], ovf[0],
+                                R.SENTINEL),
+         "calls": _moved(staged.calls, calls0),
+         "bytes": _moved(staged.bytes, bytes0),
+         "held": shmesh.held, "axis": shmesh.axis}
+    del cols, count, ovf
+    dist.barrier()
+    t0 = time.perf_counter()
+    with staged:
+        res = build(*args)
+    sync()
+    b["ms"] = 1e3 * (time.perf_counter() - t0)
+    del res, args
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) query_s on the rank's shard of I_c2p
+    ed = Path(job["engine_dir"])
+    blk = np.load(ed / f"c{rank}.npy")
+    qargs = [torch.from_numpy(np.load(ed / f"{k}.npy")).to(dev)
+             for k in ("ca", "cb")] + [
+        torch.from_numpy(np.ascontiguousarray(blk[:, j]))[None].to(dev)
+        for j in range(3)] + [torch.from_numpy(
+            np.load(ed / f"cn{rank}.npy")).to(dev)]
+    del blk
+    query = engine_query_step(None, job["query_shape"], shmesh)
+    calls0 = dict(staged.calls)
+    with staged:
+        (pv, pu), pn = query(*qargs)
+    c = {"digest": shard_digest([pv[0], pu[0]], pn[0], False, R.SENTINEL),
+         "calls": _moved(staged.calls, calls0)}
+    del pv, pu, pn, qargs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"a": a, "b": b, "c": c}
+
+
+def mesh_cells_check(mc: dict, results: list, engine21: dict) -> dict:
+    """Phase 25's verdict in the parent: (a) every rank's losses and grad
+    norms within ``MC_TOL`` of the unsharded steps', its first step's
+    parameters within ``MC_TOL`` of their largest value where |g| >=
+    ``STEP_DETERMINED`` and within 2 lr everywhere, its rows of the output
+    within ``MC_TOL``, every rank's parameters the same, its step's peak
+    within ``RECKON_BAND`` (+ ``RECKON_SLACK_GIB``) of the reckoning and
+    its staged bytes by kind the reckoning's; (b) every rank's
+    ``build_64m`` shard through ``MeshExchange`` equal to phase 21's (and
+    so to phase 23(b)'s) bit for bit; (c) its ``query_s`` shard equal to
+    phase 21's bit for bit; no kernel launched.  Returns the launches
+    the ranks made in this phase (all 0)."""
+    lo, hi = RECKON_BAND
+    want = mc["reckoned_gib"]
+    mesh_cells_report(mc, results, engine21)
+    for r in results:
+        a, s = r["e"]["a"], r["rank"]
+        for what in ("losses", "grad_norms"):
+            err = max(abs(x - y) / max(abs(y), 1e-30)
+                      for x, y in zip(a[what], mc[what]))
+            if err > MC_TOL:
+                fail(f"mesh_cells: rank {s}'s {what} {a[what]} differ from "
+                     f"the unsharded step's {mc[what]} ({err:.2e} > {MC_TOL})")
+        e = a["errors"]
+        if e["sure"] > MC_TOL or e["any"] > 2 * MC_LR or a["out_err"] > MC_TOL:
+            fail(f"mesh_cells: rank {s}'s first step {e} or its rows of the "
+                 f"output ({a['out_err']:.2e}) differ from the unsharded ones")
+        if a["params"] != results[0]["e"]["a"]["params"] \
+                or not a["replicated"]:
+            fail(f"mesh_cells: rank {s}'s parameters are not every rank's")
+        if not lo * want <= a["peak_gib"] <= hi * want + RECKON_SLACK_GIB:
+            fail(f"mesh_cells: rank {s}'s step peak {a['peak_gib']:.3f} GiB "
+                 f"is outside {RECKON_BAND} (+ {RECKON_SLACK_GIB} GiB) of "
+                 f"the reckoned {want:.3f} GiB")
+        if a["bytes_a_step"] != mc["reckoned_coll"]["bytes_by_kind"]:
+            fail(f"mesh_cells: rank {s} staged {a['bytes_a_step']} bytes a "
+                 f"step, the reckoning {mc['reckoned_coll']['bytes_by_kind']}")
+        b = r["e"]["b"]
+        if b["held"] != [s] or b["digest"] != engine21["digests"][s] \
+                or b["digest"] != r["b"]["digest"] or not b["digest"][1]:
+            fail(f"mesh_cells: rank {s}'s build_64m shard through "
+                 "MeshExchange differs from phase 21's and phase 23(b)'s")
+        if r["e"]["c"]["digest"] != engine21["query_digests"][s] \
+                or r["e"]["c"]["calls"]:
+            fail(f"mesh_cells: rank {s}'s query_s shard differs from phase "
+                 f"21's, or it called {r['e']['c']['calls']}")
+        if any(r["e"]["launches"].values()):
+            fail(f"mesh_cells: rank {s} launched {r['e']['launches']}; the "
+                 "path's kernel set is empty")
+    return {name: sum(r["e"]["launches"][name] for r in results)
+            for name in KERNELS}
+
+
+def mesh_cells_report(mc: dict, results: list, engine21: dict) -> None:
+    say(f"[mesh_cells] (a) {MC_ARCH} at its published config, {MC_SHAPE} "
+        f"(N={mc['n']} with {mc['real'][0]} real, E={mc['e']} with "
+        f"{mc['real'][1]} real; {mc['n'] // len(results)} and "
+        f"{mc['e'] // len(results)} rows a rank) on a {MT_MESH[0]} "
+        f"{MT_MESH[1]} DeviceMesh over phase 23's {len(results)} gloo ranks "
+        f"(one card), node and edge rows over every axis, the parameters "
+        f"replicated; {MC_STEPS} gnn_steps at lr {MC_LR}; unsharded on the "
+        f"card: losses {mc['losses']}, grad norms {mc['grad_norms']} "
+        f"({mc['ref_s']:.1f} s with the batch's sampling and files); "
+        f"reckoned over a fake {len(results)}-rank group: "
+        f"{mc['reckoned_gib']:.3f} GiB a rank ({mc['reckon_s']:.1f} s), "
+        f"collectives {mc['reckoned_coll']}")
+    for r in sorted(results, key=lambda r: r["rank"]):
+        a, b, c = r["e"]["a"], r["e"]["b"], r["e"]["c"]
+        say(f"[mesh_cells] rank {r['rank']}: (a) losses {a['losses']}, grad "
+            f"norms {a['grad_norms']}; first step vs unsharded "
+            f"{a['errors']}, its rows of the output {a['out_err']:.3g} (tol "
+            f"{MC_TOL}, 2 lr {2 * MC_LR}); step ms "
+            + ", ".join(f"{x:.1f}" for x in a["ms"])
+            + f"; a step's calls {a['calls_a_step']}, bytes "
+            f"{a['bytes_a_step']} ({sum(a['bytes_a_step'].values()) / 1e9:.3f}"
+            f" GB; reckoned {mc['reckoned_coll']['total_bytes'] / 1e9:.3f}); "
+            f"{a['staged']['staged_bytes'] / 1e9:.3f} GB staged through host "
+            f"memory in all, {a['staged']['gloo_s']:.2f} s inside gloo's "
+            f"calls; step peak {a['peak_gib']:.3f} GiB vs reckoned "
+            f"{mc['reckoned_gib']:.3f} (x{a['peak_gib'] / mc['reckoned_gib']:.4f})"
+            f"; set-up {a['setup_s']:.1f} s; (b) build_64m through "
+            f"MeshExchange over the flattened group {b['axis']!r} (shard "
+            f"{b['held']}): equal to phase 21's and phase 23(b)'s shard bit "
+            f"for bit; calls {b['calls']}, bytes {b['bytes']}; a timed step "
+            f"{b['ms']:.1f} ms (phase 23(b) {float(np.median(r['b']['ms'])):.1f} "
+            f"ms, in process {engine21['build_ms']:.1f} ms); (c) query_s "
+            f"equal to phase 21's shard, no collective; the rank's phase "
+            f"{r['e']['s']:.1f} s; predicted {MC_PREDICTED}")
 
 
 # ---------------------------------------------------------------------- #
@@ -4952,11 +5338,21 @@ def main() -> int:
     mt_parent = read_counts("mesh_train (parent: the unsharded step, the "
                             "reckoning; kernel set: none)", ())
     torch.cuda.empty_cache()
+    # Phase 25's parent half likewise (the sampled batch, the unsharded
+    # GNN steps on the card, the reckoning); its ranks' half runs after
+    # phase 24's, their counts set to 0 just before it.
+    zero_counts()
+    t_mc = time.perf_counter()
+    mc = mesh_cells_prepare(dev, pg_root / "mesh_cells")
+    t_mc = time.perf_counter() - t_mc
+    mc_parent = read_counts("mesh_cells (parent: the unsharded GNN step, "
+                            "the reckoning; kernel set: none)", ())
+    torch.cuda.empty_cache()
     zero_counts()
     ranks, results = process_group_phase(
         dev, kind, dict(pg_job, engine_dir=str(pg_root / "engine"),
                         grads_file=str(pg_root / "grads.pt"),
-                        mesh_train=mt),
+                        mesh_train=mt, mesh_cells=mc),
         sh13, measured["engine"], measured["gnn"]["grads"])
     path_counts["process_group"] = {
         name: mod.launches + ranks[name] for name, mod in counters.items()}
@@ -4975,6 +5371,20 @@ def main() -> int:
         f"{path_counts['mesh_train']}; phase {t_mt + max(r['d']['s'] for r in results):.1f} s "
         f"(parent {t_mt:.1f} s, ranks {max(r['d']['s'] for r in results):.1f} s; "
         f"predicted {MT_PREDICTED['phase_s']} s) "
+        f"({time.perf_counter() - t_start:.1f} s into the run)")
+
+    # ---- 25. mesh_cells: the GNN and engine cells in phase 23's ranks -- #
+    in_ranks = mesh_cells_check(mc, results, measured["engine"])
+    path_counts["mesh_cells"] = {name: mc_parent[name] + in_ranks[name]
+                                 for name in KERNELS}
+    if any(path_counts["mesh_cells"].values()):
+        fail(f"the mesh_cells path launched {path_counts['mesh_cells']}; its "
+             "kernel set is empty")
+    t_ranks = max(r["e"]["s"] for r in results)
+    say(f"[mesh_cells (parent and ranks)] kernel launches "
+        f"{path_counts['mesh_cells']}; phase {t_mc + t_ranks:.1f} s (parent "
+        f"{t_mc:.1f} s, ranks {t_ranks:.1f} s; predicted "
+        f"{MC_PREDICTED['phase_s']} s) "
         f"({time.perf_counter() - t_start:.1f} s into the run)")
     del results
     del measured

@@ -29,6 +29,12 @@ the mesh carries (``mesh.exchange``; every operator reads it from there):
   ``torch.distributed`` group, each rank holding its own lanes
   (:func:`make_process_mesh`).  Gloo only: every call stages its buffers
   through host memory.
+* :class:`MeshExchange` — one process a shard over a ``DeviceMesh``'s
+  flattened group (:func:`mesh_of_device_mesh`), every call a
+  functional collective (``torch.distributed._functional_collectives``):
+  over gloo's CPU ranks, on a card's tensors under
+  ``launch.mesh.HostStagedCollectives``, and on the meta device over a
+  fake group, where ``roofline.op_cost`` counts them.
 
 An exchange carries ``n_shards`` (all shards: what ``mix32(key) % n``
 buckets by) and ``n_local`` (the shards whose lanes this process holds:
@@ -62,6 +68,7 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed import _functional_collectives as funcol
 
 from . import backend as B
 from . import relational as R
@@ -125,6 +132,18 @@ def make_mesh(n_shards: int, axis: str = "engine", device=None) -> ShardMesh:
     if n_shards < 1:
         raise ValueError(f"a mesh needs at least one shard, got {n_shards}")
     return ShardMesh(int(n_shards), axis, resolve_device(device))
+
+
+def mesh_of_device_mesh(mesh, device) -> ShardMesh:
+    """A mesh of one shard a rank over every dimension of the
+    ``DeviceMesh`` ``mesh`` flattened (the reference's engine cells run
+    over ``tuple(mesh.axis_names)``): ``n_shards`` is the mesh's size,
+    shard ``s`` the rank at row-major position ``s``, the axis named by
+    the mesh's axes joined with ``+``; the shard's tensors lie on
+    ``device`` (a card, the CPU, or the meta device of a reckoning)."""
+    exchange = MeshExchange(mesh)
+    return ShardMesh(exchange.n_shards, "+".join(mesh.mesh_dim_names),
+                     torch.device(device), exchange)
 
 
 def make_process_mesh(axis: str = "engine", group=None,
@@ -255,6 +274,56 @@ class ProcessGroupExchange:
         send = self._stage(flags.to(torch.int32))
         self._run(dist.all_reduce, send, op=dist.ReduceOp.MAX)
         return self._unstage(send, flags.device).to(torch.bool)
+
+
+class MeshExchange:
+    """The four calls with one process a shard over the flattened group
+    of a ``DeviceMesh`` (all its dimensions, row-major): this rank's B
+    lanes against the others', every call one functional collective
+    (``all_to_all_single``, ``all_gather_into_tensor``, an int32 MAX
+    ``all_reduce``) on the group the mesh names.  The collectives are
+    whatever the group's backend runs: gloo on CPU tensors, gloo through
+    ``launch.mesh.HostStagedCollectives`` on a card's (which stages them
+    through host memory and counts them), nothing over a fake group on
+    the meta device (``roofline.op_cost`` counts them); a group that
+    cannot run one raises.  Not capturable: the walker runs eagerly."""
+
+    capturable = False
+
+    def __init__(self, mesh):
+        flat = mesh._flatten() if mesh.ndim > 1 else mesh
+        self.group = flat.get_group()
+        self.group_name = self.group.group_name
+        self.n_shards = flat.size()
+        self.n_local = 1
+        self.rank = flat.get_local_rank()
+
+    def axis_index(self, lanes: int, device) -> torch.Tensor:
+        """(lanes,) this rank, for every lane."""
+        return torch.full((lanes,), self.rank, dtype=torch.int64,
+                          device=device)
+
+    def all_to_all(self, blocks: torch.Tensor) -> torch.Tensor:
+        """Block ``d`` of rank ``s``'s lanes goes to rank ``d``, where it
+        is block ``s``: (B, n, ...) -> (B, n, ...)."""
+        send = blocks.movedim(1, 0).contiguous()  # (n, B, ...)
+        recv = funcol.wait_tensor(funcol.all_to_all_single(
+            send, None, None, self.group))
+        return recv.movedim(0, 1)
+
+    def all_gather(self, blocks: torch.Tensor) -> torch.Tensor:
+        """Every rank receives every rank's block, rank ``d``'s as block
+        ``d``: (B, ...) -> (B, n, ...)."""
+        every = funcol.wait_tensor(funcol.all_gather_tensor(
+            blocks.contiguous(), 0, self.group))
+        return every.reshape((self.n_shards,) + tuple(blocks.shape)) \
+            .movedim(0, 1)
+
+    def any_shard(self, flags: torch.Tensor) -> torch.Tensor:
+        """(B,) this rank's flags -> (B,) any rank's (an int32 MAX: gloo
+        reduces no bool tensor)."""
+        return funcol.wait_tensor(funcol.all_reduce(
+            flags.to(torch.int32), "max", self.group)).to(torch.bool)
 
 
 # ---------------------------------------------------------------------- #

@@ -17,13 +17,16 @@ is a failure.  Records are JSON under ``--out`` for ``roofline.analysis``.
   ``<arch>__<shape>__card.json``;
 * ``single`` / ``multi`` / ``both``: the reference's meshes — the 16x16
   pod (256 devices) and the 2x16x16 multi-pod (512) — records
-  ``<arch>__<shape>__single.json`` / ``__multi.json``.  The LM and BST
-  cells are laid out by the reference's sharding rules as DTensors over
-  a fake process group of the mesh's size (``launch.mesh.reckoning_mesh``)
-  and one rank's step is reckoned.  The GNN and engine cells are recorded
-  with ``"status": "waits"`` (``launch.steps.MESH_WAITS``).
+  ``<arch>__<shape>__single.json`` / ``__multi.json``.  Every cell is
+  laid out by the reference's sharding rules over a fake process group of
+  the mesh's size (``launch.mesh.reckoning_mesh``) and one rank's step is
+  reckoned: the LM and BST cells' parameters, state and batches as
+  DTensors, the GNN cells' node and edge rows over every axis, the engine
+  cells one shard a rank over the flattened mesh
+  (``launch.steps.build_cell``).
 
-The run exits 1 only if a traced cell fails.
+The summary line keeps its ``waits`` count, 0 since every family is
+reckoned on a mesh.  The run exits 1 only if a traced cell fails.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k
@@ -62,7 +65,7 @@ def run_cell(arch_id: str, shape_name: str,
     (the only file it writes) and returned.  A failure raises."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import reckoning_mesh
-    from repro_torch.launch.steps import MESH_WAITS, build_cell
+    from repro_torch.launch.steps import build_cell
     from repro_torch.roofline.collect import analyze_step
 
     spec = get_arch(arch_id)
@@ -77,10 +80,6 @@ def run_cell(arch_id: str, shape_name: str,
     if shape.skip:
         rec["status"] = "skipped"
         rec["skip_reason"] = shape.skip
-        return _write(rec, out_dir)
-    if multi_pod is not None and spec.family not in ("lm", "recsys"):
-        rec["status"] = "waits"
-        rec["waits_for"] = MESH_WAITS
         return _write(rec, out_dir)
     t0 = time.time()
     with (contextlib.nullcontext() if multi_pod is None
@@ -148,8 +147,6 @@ def main(argv=None) -> None:
             if rec["status"] == "skipped":
                 print(f"[SKIP] {aid} {sname} {mesh}: "
                       f"{rec['skip_reason'][:60]}...")
-            elif rec["status"] == "waits":
-                print(f"[WAITS] {aid} {sname} {mesh}: {rec['waits_for']}")
             else:
                 print(f"[ok] {aid} {sname} {mesh}: trace {rec['trace_s']}s, "
                       f"{rec['per_device_hbm_gb']} GiB a device "

@@ -137,8 +137,9 @@ class HostStagedCollectives(TorchDispatchMode):
     Gloo all-reduces CUDA tensors but has no all-gather into one tensor
     and no reduce-scatter for them, and those are what DTensor's
     redistributes ask for.  Under this mode every functional collective
-    (``_c10d_functional`` all-reduce, all-gather and reduce-scatter, and
-    DTensor's shard-dimension all-to-all) on a tensor of
+    (``_c10d_functional`` all-reduce, all-gather, reduce-scatter and
+    ``all_to_all_single`` — the last ``core.distributed.MeshExchange``'s
+    — and DTensor's shard-dimension all-to-all) on a tensor of
     ``device_type`` is copied to host memory, run there by gloo's CPU
     collectives (all-reduce, list all-gather, all-to-all; a reduce-scatter
     as an all-reduce of which each rank keeps its chunk) on the group the
@@ -229,6 +230,18 @@ class HostStagedCollectives(TorchDispatchMode):
             host /= group_size
         mine = host.chunk(group_size, 0)[dist.get_rank(pg)].contiguous()
         return self._back(mine, x, "reduce-scatter")
+
+    def _all_to_all_single(self, x, output_split_sizes, input_split_sizes,
+                           group_name):
+        """Rows ``input_split_sizes[j]`` of ``x`` (in order) to rank
+        ``j``; what rank ``j`` sent, ``output_split_sizes[j]`` rows, as
+        the ``j``-th part of the result."""
+        pg = self._group(group_name)
+        host = self._host(x)
+        out = host.new_empty((sum(output_split_sizes),) + tuple(host.shape[1:]))
+        self._gloo(dist.all_to_all_single, out, host,
+                   list(output_split_sizes), list(input_split_sizes), group=pg)
+        return self._back(out, x, "all-to-all")
 
     def _shard_dim_alltoall(self, x, gather_dim, shard_dim, group_name):
         """Chunk ``j`` of ``x`` along ``shard_dim`` to rank ``j``; the

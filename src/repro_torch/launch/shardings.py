@@ -291,7 +291,18 @@ def gnn_batch_specs(mesh, n_nodes: int, n_edges: int) -> dict:
 
 def gnn_param_specs(params, mesh) -> dict:
     """GNN params are small: replicated.  ``params`` is the reference's
-    tree (``convert.gnn_params_to_numpy``)."""
+    tree (``convert.gnn_params_to_numpy``) or the port's parameter module
+    (``models.gnn.Params``; its layers are the reference's stacked
+    leaves)."""
+    if isinstance(params, nn.Module):
+        tree: dict = {}
+        for name, _ in params.named_parameters():
+            *parents, leaf = [k for k in name.split(".") if not k.isdigit()]
+            node = tree
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[leaf] = ()
+        return tree
     if isinstance(params, dict):
         return {k: gnn_param_specs(v, mesh) for k, v in params.items()}
     if isinstance(params, (list, tuple)):

@@ -24,12 +24,16 @@ mesh) names another, and refuses inputs that lie elsewhere.
 (architecture x input shape) cell as a :class:`Cell` — the step and its
 inputs, made directly on ``device`` at the reference's shapes and dtypes.
 On the meta device nothing is allocated, so ``launch.dryrun`` reckons a
-cell far too big for the card.  Given a ``DeviceMesh``, an LM or BST
-cell lays its parameters, optimizer state, batches and cache out by the
-reference's sharding rules (``launch.shardings``) as DTensors, and the
-same steps run on them: over a real group (gloo) each rank computes its
-shards; over ``launch.mesh.reckoning_mesh``'s fake group, on the meta
-device, one rank's step is reckoned.
+cell far too big for the card.  Given a ``DeviceMesh``, a cell lays its
+inputs out by the reference's sharding rules (``launch.shardings``) and
+the same steps run on them: an LM or BST cell's parameters, optimizer
+state, batches and cache as DTensors; a GNN cell's node and edge rows
+over every mesh dimension (N and E padded to the mesh's size) with the
+parameters replicated; an engine cell's relations one shard a rank over
+the mesh's flattened group (``distributed.mesh_of_device_mesh``).  Over
+a real group (gloo) each rank computes its shards; over
+``launch.mesh.reckoning_mesh``'s fake group, on the meta device, one
+rank's step is reckoned.
 """
 
 from __future__ import annotations
@@ -284,6 +288,7 @@ def engine_query_step(spec, shape, mesh: D.ShardMesh):
 ENGINE_SHARDS = 4  # the engine cells' in-process shards on one card
 # what a cell's ``**reduce`` may cut besides a shape's dims and a config's
 # fields: microbatches a train step, in-process shards, rows a shard block
+# (the last two not on a mesh, whose size fixes both)
 CELL_KNOBS = ("accum", "n_shards", "block_rows")
 
 I32 = torch.int32
@@ -309,18 +314,13 @@ class Cell:
     axis_of_group: dict = dataclasses.field(default_factory=dict)
 
 
-MESH_WAITS = ("ROADMAP item 16(b): the GNN and engine cells on a mesh "
-              "wait for their own slice")
-
-
 def build_cell(spec, shape, device="meta", mesh=None, **reduce) -> Cell:
     """The cell of ``spec`` (a ``configs.ArchSpec``) at ``shape`` on
     ``device`` (the meta device by default), laid out on ``mesh`` (a
     ``DeviceMesh``; None for one device).  ``reduce`` cuts it: a key of
     ``shape.dims`` (``global_batch``, ``seq_len``, ``batch``, ...), a field
-    of ``spec.config`` (``n_layers``, ...), or one of ``CELL_KNOBS``.  A
-    GNN or engine cell on a mesh raises ``NotImplementedError``
-    (``MESH_WAITS``)."""
+    of ``spec.config`` (``n_layers``, ...), or one of ``CELL_KNOBS``
+    (``n_shards`` and ``block_rows`` raise on a mesh)."""
     dims, changes, knobs = dict(shape.dims), {}, {}
     for key, value in reduce.items():
         if key in dims:
@@ -335,8 +335,10 @@ def build_cell(spec, shape, device="meta", mesh=None, **reduce) -> Cell:
         else spec.config
     dev = torch.device(device)
     if mesh is not None:
-        if spec.family not in ("lm", "recsys"):
-            raise NotImplementedError(f"{spec.arch_id}: {MESH_WAITS}")
+        taken = [k for k in ("n_shards", "block_rows") if k in knobs]
+        if taken:
+            raise ValueError(f"{spec.arch_id}: {taken} are the mesh's to "
+                             "set, not a cut")
         knobs["mesh"] = mesh
     make = {"lm": _lm_cell, "gnn": _gnn_cell, "recsys": _bst_cell,
             "engine": _engine_cell}[spec.family]
@@ -418,7 +420,12 @@ def _lm_cell(spec, cfg, shape, dims, knobs, dev):
     raise ValueError(shape.kind)
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def _gnn_cell(spec, cfg, shape, dims, knobs, dev):
+    mesh = knobs.get("mesh")
     d_feat = dims.get("d_feat", cfg.d_in)
     cfg = dataclasses.replace(cfg, d_in=d_feat)
     if shape.kind == "sampled":
@@ -427,6 +434,8 @@ def _gnn_cell(spec, cfg, shape, dims, knobs, dev):
         n, e = dims["n_nodes"] * dims["batch"], dims["n_edges"] * dims["batch"]
     else:
         n, e = dims["n_nodes"], dims["n_edges"]
+    if mesh is not None:  # the padding is masked out
+        n, e = _round_up(n, mesh.size()), _round_up(e, mesh.size())
     pos = cfg.arch in ("egnn", "mace")
     g = G.GraphBatch(
         node_feat=_zeros((n, d_feat), F32, dev),
@@ -438,10 +447,26 @@ def _gnn_cell(spec, cfg, shape, dims, knobs, dev):
         positions=_zeros((n, 3), F32, dev) if pos else None,
         graph_ids=_zeros((n,), I32, dev), n_graphs=1)
     params = G.init_params(cfg, _generator(dev), dev)
+    targets = _zeros((n, cfg.d_out), F32, dev)
+    if mesh is not None:
+        g, targets = gnn_laid_out(g, targets, mesh)
+        params = S.distribute_tree(params, S.gnn_param_specs(params, mesh),
+                                   mesh)
     opt = adamw_init(dict(params.named_parameters()))
-    return (gnn_step(cfg, lr=1e-3, device=dev),
-            (params, opt, g, _zeros((n, cfg.d_out), F32, dev)), {"card": 1},
-            f"gnn train N={n} E={e}")
+    return (gnn_step(cfg, lr=1e-3, device=dev), (params, opt, g, targets),
+            _mesh_shape(mesh), f"gnn train N={n} E={e}")
+
+
+def gnn_laid_out(g: G.GraphBatch, targets, mesh):
+    """``(g, targets)`` as DTensors laid out on ``mesh`` by the
+    reference's ``gnn_batch_specs``: every row field's rows, and the
+    targets' like the node features, over every mesh dimension (where N
+    and E divide the mesh's size; else replicated)."""
+    specs = S.gnn_batch_specs(mesh, g.node_feat.shape[0], g.senders.shape[0])
+    return (G.GraphBatch(*(
+        S.distribute(t, specs[name], mesh) if isinstance(t, torch.Tensor)
+        else t for name, t in zip(g._fields, g))),
+        S.distribute(targets, specs["node_feat"], mesh))
 
 
 def _bst_cell(spec, cfg, shape, dims, knobs, dev):
@@ -476,7 +501,7 @@ def _bst_cell(spec, cfg, shape, dims, knobs, dev):
         if mesh is not None:  # the candidates over every axis, the rest
             names = names_and_shape(mesh)[0]  # replicated
             total = math.prod(names_and_shape(mesh)[1])
-            nc = -(-nc // total) * total
+            nc = _round_up(nc, total)
             seq = [S.distribute(t, (None,) * t.ndim, mesh) for t in seq]
             cand = S.distribute(_zeros((nc,), I32, dev),
                                 (names if len(names) > 1 else names[0],),
@@ -498,20 +523,27 @@ def bst_batch_specs(mesh) -> RS.BSTBatch:
 
 
 def _engine_cell(spec, cfg, shape, dims, knobs, dev):
+    """On one card ``n_shards`` in-process shards; on a ``DeviceMesh`` one
+    shard a rank over its flattened group (``per = n_pairs // size`` rows,
+    one (1, per) block a rank)."""
     shape = dataclasses.replace(shape, dims=dims)
-    total = knobs.get("n_shards", ENGINE_SHARDS)
-    mesh = D.make_mesh(total, device=dev)
+    if "mesh" in knobs:
+        mesh = D.mesh_of_device_mesh(knobs["mesh"], dev)
+        total, where = mesh.n_shards, _mesh_shape(knobs["mesh"])
+        on = f"one shard a rank of {total} over the flattened mesh"
+    else:
+        total = knobs.get("n_shards", ENGINE_SHARDS)
+        mesh = D.make_mesh(total, device=dev)
+        where, on = mesh.shape, f"{total} in-process shards"
     per = dims["n_pairs"] // total
     rows = knobs.get("block_rows", per)
-    col, cnt = (total, rows), (total,)
+    col, cnt = (mesh.n_local, rows), (mesh.n_local,)
     if shape.name.startswith("build"):
         args = tuple(_zeros(s, I32, dev) for s in (col, col, col, cnt) * 2)
-        return (engine_build_step(spec, shape, mesh), args, mesh.shape,
-                f"engine level join {dims['n_pairs']} pairs on {total} "
-                f"in-process shards")
+        return (engine_build_step(spec, shape, mesh), args, where,
+                f"engine level join {dims['n_pairs']} pairs on {on}")
     lc = dims["lookup_classes"]
     args = tuple(_zeros(s, I32, dev) for s in ((lc,), (lc,), col, col, col,
                                                  cnt))
-    return (engine_query_step(spec, shape, mesh), args, mesh.shape,
-            f"engine conjunction query {dims['n_pairs']} pairs on {total} "
-            f"in-process shards")
+    return (engine_query_step(spec, shape, mesh), args, where,
+            f"engine conjunction query {dims['n_pairs']} pairs on {on}")

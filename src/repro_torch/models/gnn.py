@@ -19,6 +19,13 @@ the layers' leaves on a leading axis and scans over them; here
 the scan is a Python loop.  ``convert.gnn_params_from_numpy`` /
 ``gnn_params_to_numpy`` carry a tree across.
 
+On a mesh (``launch.steps.build_cell(..., mesh=)``) the graph's node and
+edge rows lie over every mesh dimension and the parameters are
+replicated, as DTensors; :func:`train_loss` then runs each rank on its
+own rows through :class:`RowShards`, which writes out the gathers and
+scatter-sums that GSPMD makes of the reference's ``h[senders]`` and
+``segment_sum`` under those specs.
+
 MACE keeps the reference's Cartesian-irrep form (l=0 scalars, l=1
 vectors, l=2 traceless symmetric tensors, exact E(3)-equivariant
 couplings); see the reference module's docstring.
@@ -33,6 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import ops as kops
 
@@ -143,16 +151,116 @@ def _ids(ids: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _agg(messages: torch.Tensor, receivers: torch.Tensor, n_nodes: int,
-         edge_mask: torch.Tensor) -> torch.Tensor:
+         edge_mask: torch.Tensor, rows=None) -> torch.Tensor:
     """Masked scatter-sum of edge messages to destination nodes — the one
     substrate op every model shares.  As ``segment_sum`` does, ids
-    outside [0, n_nodes) are dropped: they land in a spare row."""
+    outside [0, n_nodes) are dropped: they land in a spare row.  With
+    ``rows`` (a :class:`RowShards`) the messages are this rank's edges',
+    ``n_nodes`` the global count, and the whole-size partial sum is
+    reduce-scattered to this rank's rows."""
     mask = edge_mask.reshape((-1,) + (1,) * (messages.ndim - 1))
     m = torch.where(mask, messages, 0.0)
     r = receivers.long()
     r = torch.where((r >= 0) & (r < n_nodes), r, n_nodes)
     out = messages.new_zeros((n_nodes + 1,) + messages.shape[1:])
-    return out.index_add(0, r, m)[:n_nodes]
+    out = out.index_add(0, r, m)[:n_nodes]
+    return out if rows is None else rows.summed(out)
+
+
+class RowShards:
+    """Node and edge rows split over every dimension of a device mesh
+    (the reference's ``gnn_batch_specs``: row ``i`` of N on the rank
+    ``i // (N / ranks)`` in row-major mesh order), seen from one rank's
+    local rows.  Each rank computes the messages of its own edges; the
+    collectives run over the mesh's flattened group (one call each, where
+    a redistribute over the mesh's dimensions makes one a dimension), as
+    DTensor redistributes, so autograd carries them:
+
+    * :meth:`whole` all-gathers node rows (before ``h[senders]``); its
+      backward reduce-scatters the partial gradients each rank's edges
+      made;
+    * :meth:`summed` reduce-scatters a whole-size partial scatter-sum to
+      this rank's rows; its backward all-gathers;
+    * :meth:`total` all-reduces a partial sum (the loss's squared error
+      and mask count);
+    * :meth:`replicated` is a replicated parameter as it is, its gradient
+      (a part on each rank) all-reduced.
+
+    ``n`` is the global node count, which ``_ids`` and ``_agg`` index by."""
+
+    def __init__(self, mesh, n_nodes: int):
+        self.mesh = mesh._flatten() if mesh.ndim > 1 else mesh
+        self.n = int(n_nodes)
+
+    def _laid(self, t, placement):
+        return DTensor.from_local(t, self.mesh, [placement], run_check=False)
+
+    def whole(self, t):
+        return self._laid(t, Shard(0)).redistribute(
+            self.mesh, [Replicate()]).to_local(grad_placements=[Partial()])
+
+    def summed(self, t):
+        return self._laid(t, Partial()).redistribute(
+            self.mesh, [Shard(0)]).to_local()
+
+    def total(self, t):
+        return self._laid(t, Partial()).redistribute(
+            self.mesh, [Replicate()]).to_local()
+
+    def replicated(self, t):
+        return self._laid(t, Replicate()).to_local(grad_placements=[Partial()])
+
+    @classmethod
+    def of(cls, g: "GraphBatch") -> "RowShards":
+        """The rows of ``g``, a batch of DTensors whose every row field
+        lies over every mesh dimension (``launch.steps`` pads N and E to
+        the mesh's size so that they do); raises otherwise."""
+        mesh = g.node_feat.device_mesh
+        for name, t in zip(g._fields, g):
+            if t is None or name == "n_graphs":
+                continue
+            if not isinstance(t, DTensor) or t.device_mesh != mesh or any(
+                    p != Shard(0) for p in t.placements):
+                raise ValueError(f"GraphBatch.{name}: its rows must lie over "
+                                 "every dimension of one mesh")
+        return cls(mesh, g.node_feat.shape[0])
+
+    def local_graph(self, g: "GraphBatch") -> "GraphBatch":
+        return GraphBatch(*(t.to_local() if isinstance(t, DTensor) else t
+                            for t in g))
+
+    def local_params(self, params) -> "_LocalParams":
+        return _LocalParams(params, self.replicated)
+
+
+class _LocalParams:
+    """A tree of DTensor parameters read as ``Params`` reads it, each
+    leaf as ``take(its local tensor)`` (taken once, however often read)."""
+
+    def __init__(self, module, take, memo=None):
+        self.module, self.take = module, take
+        self.memo = {} if memo is None else memo
+
+    def __getitem__(self, key):
+        v = self.module[key]
+        if isinstance(v, nn.Module):
+            return _LocalParams(v, self.take, self.memo)
+        if id(v) not in self.memo:
+            self.memo[id(v)] = self.take(v.to_local())
+        return self.memo[id(v)]
+
+    def __iter__(self):
+        return (_LocalParams(m, self.take, self.memo) for m in self.module)
+
+
+def _whole(h: torch.Tensor, rows) -> torch.Tensor:
+    """Every node's rows: ``h`` as it is, or gathered from every rank."""
+    return h if rows is None else rows.whole(h)
+
+
+def _count(h: torch.Tensor, rows) -> int:
+    """The global node count (``h``'s rows are this rank's on a mesh)."""
+    return h.shape[0] if rows is None else rows.n
 
 
 def edge_softmax(scores: torch.Tensor, receivers: torch.Tensor,
@@ -181,22 +289,24 @@ def gatedgcn_init(cfg: GNNConfig, init: _Init) -> Params:
                   layers=layers)
 
 
-def gatedgcn_apply(cfg: GNNConfig, params, g: GraphBatch) -> torch.Tensor:
+def gatedgcn_apply(cfg: GNNConfig, params, g: GraphBatch,
+                   rows=None) -> torch.Tensor:
     h = g.node_feat.to(cfg.dtype) @ params["embed_n"]
     if g.edge_feat is not None:
         e = g.edge_feat.to(cfg.dtype) @ params["embed_e"]
     else:
         e = h.new_zeros((g.senders.shape[0], cfg.d_hidden))
-    n = h.shape[0]
+    n = _count(h, rows)
     s, r = _ids(g.senders, n), _ids(g.receivers, n)
     for lp in params["layers"]:
-        hs = h[s]
-        hr = h[r]
+        hw = _whole(h, rows)
+        hs = hw[s]
+        hr = hw[r]
         e_new = hr @ lp["A"] + hs @ lp["B"] + e @ lp["C"]
         e_new = e + F.silu(_ln(e_new))
         gate = torch.sigmoid(e_new)
-        num = _agg(gate * (hs @ lp["V"]), g.receivers, n, g.edge_mask)
-        den = _agg(gate, g.receivers, n, g.edge_mask)
+        num = _agg(gate * (hs @ lp["V"]), g.receivers, n, g.edge_mask, rows)
+        den = _agg(gate, g.receivers, n, g.edge_mask, rows)
         h_new = h @ lp["U"] + num / (den + 1e-6)
         h = h + F.silu(_ln(h_new))
         e = e_new
@@ -219,23 +329,24 @@ def egnn_init(cfg: GNNConfig, init: _Init) -> Params:
     return Params(embed_n=embed_n, readout=readout, layers=layers)
 
 
-def egnn_apply(cfg: GNNConfig, params, g: GraphBatch):
+def egnn_apply(cfg: GNNConfig, params, g: GraphBatch, rows=None):
     """Returns (node outputs (N, d_out), updated positions (N, 3))."""
     h = g.node_feat.to(cfg.dtype) @ params["embed_n"]
     x = g.positions.to(cfg.dtype)
-    n = h.shape[0]
+    n = _count(h, rows)
     s, r = _ids(g.senders, n), _ids(g.receivers, n)
     for lp in params["layers"]:
-        diff = x[s] - x[r]  # (E, 3)
+        xw, hw = _whole(x, rows), _whole(h, rows)
+        diff = xw[s] - xw[r]  # (E, 3)
         dist2 = torch.sum(diff * diff, dim=-1, keepdim=True)
-        m = _mlp(lp["phi_e"], torch.cat([h[r], h[s], dist2], -1), 2,
+        m = _mlp(lp["phi_e"], torch.cat([hw[r], hw[s], dist2], -1), 2,
                  final_act=True)
         w = _mlp(lp["phi_x"], m, 2)  # (E, 1)
         # normalize by degree for stability (paper's C = 1/(n-1))
-        x_agg = _agg(diff * w, g.receivers, n, g.edge_mask)
-        deg = _agg(torch.ones_like(w), g.receivers, n, g.edge_mask)
+        x_agg = _agg(diff * w, g.receivers, n, g.edge_mask, rows)
+        deg = _agg(torch.ones_like(w), g.receivers, n, g.edge_mask, rows)
         x = x + x_agg / (deg + 1.0)
-        m_agg = _agg(m, g.receivers, n, g.edge_mask)
+        m_agg = _agg(m, g.receivers, n, g.edge_mask, rows)
         h = h + _mlp(lp["phi_h"], torch.cat([h, m_agg], -1), 2)
     return h @ params["readout"], x
 
@@ -296,11 +407,13 @@ def mace_init(cfg: GNNConfig, init: _Init) -> Params:
     return Params(embed_n=embed_n, readout=readout, layers=layers)
 
 
-def mace_apply(cfg: GNNConfig, params, g: GraphBatch) -> torch.Tensor:
+def mace_apply(cfg: GNNConfig, params, g: GraphBatch,
+               rows=None) -> torch.Tensor:
     """Higher-order equivariant message passing; returns (N, d_out)."""
     h = g.node_feat.to(cfg.dtype) @ params["embed_n"]  # (N, C)
-    x = g.positions.to(cfg.dtype)
-    n, c = h.shape
+    x = _whole(g.positions.to(cfg.dtype), rows)
+    n_rows, c = h.shape  # this rank's rows on a mesh
+    n = _count(h, rows)
     s, r = _ids(g.senders, n), _ids(g.receivers, n)
     eye3 = torch.eye(3, dtype=h.dtype, device=h.device)
 
@@ -313,20 +426,20 @@ def mace_apply(cfg: GNNConfig, params, g: GraphBatch) -> torch.Tensor:
     y2 = rhat[:, :, None] * rhat[:, None, :] - eye3 / 3.0  # (E, 3, 3)
 
     for lp in params["layers"]:
-        hs = (h @ lp["wsrc"])[s]  # (E, C)
+        hs = _whole(h @ lp["wsrc"], rows)[s]  # (E, C)
         r0 = _mlp(lp["radial0"], rbf, 1)  # (E, C)
         r1 = _mlp(lp["radial1"], rbf, 1)
         r2 = _mlp(lp["radial2"], rbf, 1)
         # atomic basis A (density trick): sum over neighbors
-        a0 = _agg(r0 * hs, g.receivers, n, g.edge_mask)  # (N, C)
+        a0 = _agg(r0 * hs, g.receivers, n, g.edge_mask, rows)  # (N, C)
         a1 = _agg((r1 * hs)[:, :, None] * y1[:, None, :], g.receivers, n,
-                  g.edge_mask)  # (N, C, 3)
+                  g.edge_mask, rows)  # (N, C, 3)
         a2 = _agg((r2 * hs)[:, :, None, None] * y2[:, None, :, :],
-                  g.receivers, n, g.edge_mask)  # (N, C, 3, 3)
+                  g.receivers, n, g.edge_mask, rows)  # (N, C, 3, 3)
 
         feats = _invariants(a0, a1, a2)
         feats = feats * lp["path_w"][None]  # learnable path weights
-        h = h + _mlp(lp["update"], feats.reshape(n, 8 * c), 2)
+        h = h + _mlp(lp["update"], feats.reshape(n_rows, 8 * c), 2)
     return _mlp(params["readout"], h, 2)
 
 
@@ -347,18 +460,20 @@ def graphcast_init(cfg: GNNConfig, init: _Init) -> Params:
     return Params(enc_n=enc_n, enc_e=enc_e, dec=dec, layers=layers)
 
 
-def graphcast_apply(cfg: GNNConfig, params, g: GraphBatch) -> torch.Tensor:
+def graphcast_apply(cfg: GNNConfig, params, g: GraphBatch,
+                    rows=None) -> torch.Tensor:
     h = _mlp(params["enc_n"], g.node_feat.to(cfg.dtype), 2)
     if g.edge_feat is not None:
         e = _mlp(params["enc_e"], g.edge_feat.to(cfg.dtype), 2)
     else:
         e = h.new_zeros((g.senders.shape[0], cfg.d_hidden))
-    n = h.shape[0]
+    n = _count(h, rows)
     s, r = _ids(g.senders, n), _ids(g.receivers, n)
     for lp in params["layers"]:
-        e_in = torch.cat([e, h[s], h[r]], -1)
+        hw = _whole(h, rows)
+        e_in = torch.cat([e, hw[s], hw[r]], -1)
         e = e + _mlp(lp["edge_mlp"], e_in, 2)
-        agg = _agg(e, g.receivers, n, g.edge_mask)
+        agg = _agg(e, g.receivers, n, g.edge_mask, rows)
         h = h + _mlp(lp["node_mlp"], torch.cat([h, agg], -1), 2)
     return _mlp(params["dec"], h, 2)
 
@@ -384,23 +499,39 @@ def init_params(cfg: GNNConfig, generator: torch.Generator,
     return INIT[cfg.arch](cfg, init)
 
 
-def apply(cfg: GNNConfig, params, g: GraphBatch) -> torch.Tensor:
+def apply(cfg: GNNConfig, params, g: GraphBatch, rows=None) -> torch.Tensor:
+    """Node outputs (N, d_out); with ``rows`` (a :class:`RowShards`) the
+    local graph's and local parameters' (``RowShards.local_graph`` /
+    ``local_params``), this rank's rows."""
     if cfg.arch == "gatedgcn":
-        return gatedgcn_apply(cfg, params, g)
+        return gatedgcn_apply(cfg, params, g, rows)
     if cfg.arch == "egnn":
-        return egnn_apply(cfg, params, g)[0]
+        return egnn_apply(cfg, params, g, rows)[0]
     if cfg.arch == "mace":
-        return mace_apply(cfg, params, g)
+        return mace_apply(cfg, params, g, rows)
     if cfg.arch == "graphcast":
-        return graphcast_apply(cfg, params, g)
+        return graphcast_apply(cfg, params, g, rows)
     raise ValueError(cfg.arch)
 
 
 def train_loss(cfg: GNNConfig, params, g: GraphBatch,
                targets: torch.Tensor):
     """Masked squared error over the real nodes: ``(loss float32,
-    {"mse": loss})``, divided by ``max(sum(node_mask), 1)``."""
-    out = apply(cfg, params, g)
+    {"mse": loss})``, divided by ``max(sum(node_mask), 1)``.  On a mesh
+    (``g``'s and ``targets``' rows DTensors over every dimension, the
+    parameters replicated DTensors) each rank computes its own rows and
+    the error's sum and the mask's count are all-reduced first: the loss
+    is the whole graph's on every rank, a plain tensor, and each
+    parameter's gradient the whole one, replicated."""
+    rows = None
+    if isinstance(g.node_feat, DTensor):
+        rows = RowShards.of(g)
+        params, g = rows.local_params(params), rows.local_graph(g)
+        targets = targets.to_local()
+    out = apply(cfg, params, g, rows)
     err = torch.where(g.node_mask[:, None], out - targets, 0.0)
-    loss = torch.sum(err * err) / torch.clamp(g.node_mask.sum(), min=1)
+    sq, count = torch.sum(err * err), g.node_mask.sum()
+    if rows is not None:
+        sq, count = rows.total(sq), rows.total(count)
+    loss = sq / torch.clamp(count, min=1)
     return loss.to(torch.float32), {"mse": loss.detach()}

@@ -95,13 +95,10 @@ def load_records(d: str) -> list:
 def table(recs: list) -> list:
     rows = []
     for r in recs:
-        if r["status"] in ("skipped", "waits"):
+        if r["status"] == "skipped":
             rows.append({"arch": r["arch"], "shape": r["shape"],
-                         "mesh": r["mesh"],
-                         "status": "SKIP" if r["status"] == "skipped"
-                         else "WAITS",
-                         "note": r.get("skip_reason",
-                                       r.get("waits_for", ""))[:60]})
+                         "mesh": r["mesh"], "status": "SKIP",
+                         "note": r.get("skip_reason", "")[:60]})
             continue
         if r["status"] != "ok":
             rows.append({"arch": r["arch"], "shape": r["shape"],

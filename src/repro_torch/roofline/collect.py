@@ -18,12 +18,17 @@ bfloat16, 3.35 TB/s HBM; NVLink 4 at 450 GB/s each way between the 8
 cards of a node; across nodes one 400 Gb/s NDR InfiniBand port a card
 (50 GB/s).  Ranks fill nodes in row-major mesh order, so an axis whose
 stride times size exceeds 8 (the 16-way "model" axis, "data", "pod" of
-the production meshes) spans nodes and is priced at NDR.
+the production meshes) spans nodes and is priced at NDR.  A group over
+several axes (a mesh flattened: the GNN and engine cells' collectives)
+is filed under its axes joined with ``+`` and priced at the slowest link
+any of them spans.
 """
 
 from __future__ import annotations
 
 import re
+
+import torch.distributed as dist
 
 from .op_cost import analyze
 
@@ -98,7 +103,7 @@ def analyze_step(cell, in_place_backward: bool = True) -> dict:
     coll = dict(cost["collectives"])
     by_axis: dict = {}
     for group, n in coll.pop("bytes_by_group").items():
-        axis = cell.axis_of_group.get(group, str(group))
+        axis = _axis_of(cell, group)
         by_axis[axis] = by_axis.get(axis, 0) + n
     coll["bytes_by_axis"] = by_axis
     return {
@@ -121,17 +126,36 @@ def analyze_step(cell, in_place_backward: bool = True) -> dict:
     }
 
 
+def _axis_of(cell, group) -> str:
+    """The axis a collective's group spans: the cell's name for it, the
+    mesh's axes joined with ``+`` for the default group of a mesh as large
+    as the world (a whole mesh flattened is that group), else the group's
+    own name."""
+    if group in cell.axis_of_group:
+        return cell.axis_of_group[group]
+    if (len(cell.mesh_shape) > 1 and dist.is_initialized()
+            and group == dist.group.WORLD.group_name
+            and cell.n_devices == dist.get_world_size()):
+        return "+".join(cell.mesh_shape)
+    return str(group)
+
+
 def link_bw(mesh_shape: dict, axis: str) -> float:
-    """Bytes/s of the slowest link a collective over ``axis`` crosses:
-    NVLink within a node, NDR across nodes."""
+    """Bytes/s of the slowest link a collective over ``axis`` (one mesh
+    axis, or several joined with ``+``) crosses: NVLink within a node,
+    NDR across nodes."""
     names, sizes = list(mesh_shape), list(mesh_shape.values())
-    if axis not in mesh_shape:
+    spanned = axis.split("+") if axis is not None else []
+    if not spanned or any(a not in mesh_shape for a in spanned):
         return ICI_BW
-    i = names.index(axis)
-    stride = 1
-    for n in sizes[i + 1:]:
-        stride *= n
-    return ICI_BW if stride * sizes[i] <= CARDS_PER_NODE else NDR_BW
+    reach = 1  # the farthest any of the axes reaches, in ranks
+    for a in spanned:
+        i = names.index(a)
+        stride = 1
+        for n in sizes[i + 1:]:
+            stride *= n
+        reach = max(reach, stride * sizes[i])
+    return ICI_BW if reach <= CARDS_PER_NODE else NDR_BW
 
 
 def roofline_terms(rec: dict, model_flops: float | None = None) -> dict:

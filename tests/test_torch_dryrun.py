@@ -3,9 +3,10 @@ cell kind builds on the meta device at the reference's input shapes and
 dtypes, the records carry the reference's keys, skips are the
 reference's, a cell past the card's 80 GiB is ``ok`` and says so, and
 ``run_cell`` writes only where it is told.  On the reference's meshes
-(``--mesh single``, ``multi``, ``both``) the LM and BST cells are reckoned
-one device of 256 or 512 under the reference's record names, and the GNN
-and engine cells are recorded as waiting."""
+(``--mesh single``, ``multi``, ``both``) every cell is reckoned one device
+of 256 or 512 under the reference's record names: the GNN cells' rows
+over every axis by the reference's specs, the engine cells one shard a
+device, their collectives over the flattened mesh."""
 
 import dataclasses
 import json
@@ -108,27 +109,89 @@ def test_main_reckons_lm_and_bst_cells_on_the_references_meshes(
         assert cache / n <= rec["argument_size_in_bytes"] < 1.2 * cache / n
 
 
-def test_gnn_and_engine_cells_wait_on_a_mesh(tmp_path, capsys):
-    dryrun.main(["--arch", "gatedgcn", "--mesh", "multi", "--out",
-                 str(tmp_path)])
-    dryrun.main(["--arch", "cpqx-engine", "--mesh", "single", "--out",
-                 str(tmp_path)])
-    out = capsys.readouterr().out
-    assert "0 ok, 0 skipped, 4 waits, 0 failed" in out
-    assert "0 ok, 0 skipped, 2 waits, 0 failed" in out
-    with open(tmp_path / "gatedgcn__ogb_products__multi.json") as f:
-        rec = json.load(f)
-    assert rec["status"] == "waits" and "16(b)" in rec["waits_for"]
+@pytest.mark.parametrize("arch", ["gatedgcn", "egnn", "mace", "graphcast",
+                                  "cpqx-engine"])
+def test_gnn_and_engine_cells_reckon_on_the_references_meshes(
+        tmp_path, capsys, arch):
+    """Every shape of the arch at 256 and 512 devices: ``ok``, one
+    device's records, their collectives (none for ``query_s``) over the
+    mesh's axes flattened."""
+    dryrun.main(["--arch", arch, "--mesh", "both", "--out", str(tmp_path)])
+    shapes = [s.name for s in get_arch(arch).shapes]
+    assert f"{2 * len(shapes)} ok, 0 skipped, 0 waits, 0 failed" in \
+        capsys.readouterr().out
+    for shape in shapes:
+        for m, (n, mesh_shape) in MESH_DEVICES.items():
+            with open(tmp_path / f"{arch}__{shape}__{m}.json") as f:
+                rec = json.load(f)
+            assert RECORD_KEYS <= set(rec) and rec["status"] == "ok"
+            assert rec["n_devices"] == n and rec["mesh_shape"] == mesh_shape
+            coll = rec["collectives"]
+            if shape == "query_s":
+                assert coll["total_bytes"] == 0
+                continue
+            assert coll["total_bytes"] > 0
+            assert coll["bytes_by_axis"] == {
+                "+".join(mesh_shape): coll["total_bytes"]}
 
 
-def test_gnn_and_engine_cells_refuse_a_mesh():
+def test_gnn_cells_pad_and_lay_out_by_the_references_specs():
+    """A GNN cell on a mesh pads N and E to the mesh's size (the
+    reference's ``_round_up``) and lays every row field, the targets'
+    like the node features, out by the reference's ``gnn_batch_specs``;
+    its parameters by ``gnn_param_specs`` of the port's parameter module,
+    which equal the reference's of its tree (replicated)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    from jax.tree_util import tree_leaves_with_path
+    from repro.launch import shardings as JS
+    from repro_torch import convert
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch.mesh import reckoning_mesh
+    from repro_torch.models import gnn as G
+
+    spec = get_arch("mace")
+    smoke = dataclasses.replace(spec, config=spec.smoke)
+    axes = ("pod", "data", "model")
+    rm = SimpleNamespace(axis_names=axes, devices=np.empty((2, 2, 2)))
+    with reckoning_mesh((2, 2, 2), axes) as mesh:
+        cell = build_cell(smoke, spec.shape("molecule"), mesh=mesh,
+                          batch=3, d_feat=8)
+        params, _, g, targets = cell.args
+        n, e = 96, 192  # 3 x 30 nodes and 3 x 64 edges, rounded up to 8s
+        assert g.node_feat.shape == (n, 8) and g.senders.shape == (e,)
+        want = JS.gnn_batch_specs(rm, n, e)
+        for name, t in zip(g._fields, g):
+            if t is not None and name in want:
+                assert list(t.placements) == S.placements(
+                    tuple(want[name]), mesh), name
+        assert list(targets.placements) == list(g.node_feat.placements)
+        assert all(p.is_replicate() for t in params.parameters()
+                   for p in t.placements)
+    tree = convert.gnn_params_to_numpy(spec.smoke, G.init_params(
+        spec.smoke, torch.Generator().manual_seed(0), "cpu"))
+    theirs = {str(k): tuple(v) for k, v in tree_leaves_with_path(
+        JS.gnn_param_specs(tree, rm), is_leaf=lambda x: x == ())}
+    mine = {str(k): v for k, v in tree_leaves_with_path(
+        S.gnn_param_specs(params, mesh), is_leaf=lambda x: x == ())}
+    assert mine == theirs and set(mine.values()) == {()}
+
+
+def test_a_mesh_fixes_the_engine_cells_shards():
     from repro_torch.launch.mesh import reckoning_mesh
 
+    spec = get_arch("cpqx-engine")
     with reckoning_mesh((2, 2), ("data", "model")) as mesh:
-        for arch in ("egnn", "cpqx-engine"):
-            spec = get_arch(arch)
-            with pytest.raises(NotImplementedError, match="16\\(b\\)"):
-                build_cell(spec, spec.shapes[0], mesh=mesh)
+        cell = build_cell(spec, spec.shape("build_64m"), mesh=mesh,
+                          n_pairs=1 << 12)
+        assert [tuple(a.shape) for a in cell.args[:4]] == \
+            [(1, 1024)] * 3 + [(1,)]
+        assert cell.mesh_shape == {"data": 2, "model": 2}
+        for knob in ("n_shards", "block_rows"):
+            with pytest.raises(ValueError, match=knob):
+                build_cell(spec, spec.shape("build_64m"), mesh=mesh,
+                           **{knob: 2})
 
 
 def test_a_tiny_batch_splits_the_kv_time_over_every_axis(tmp_path):

@@ -110,6 +110,41 @@ def test_h100_constants():
     assert t["t_memory_s"] == rec["scan_traffic_bytes"] / 3.35e12
 
 
+@pytest.mark.parametrize("mesh_shape,axis,link", [
+    ({"data": 16, "model": 16}, "data+model", "NDR"),
+    ({"pod": 2, "data": 16, "model": 16}, "pod+data+model", "NDR"),
+    ({"pod": 2, "data": 2, "model": 2}, "pod+data+model", "ICI"),
+    ({"pod": 2, "data": 2, "model": 4}, "pod+model", "NDR"),
+    ({"pod": 2, "data": 2, "model": 4}, "data+model", "ICI"),
+    ({"data": 16, "model": 16}, "model", "NDR"),
+    ({"data": 4, "model": 2}, "model", "ICI"),
+])
+def test_a_group_is_priced_at_the_slowest_link_its_axes_span(
+        mesh_shape, axis, link):
+    """Ranks fill 8-card nodes in row-major mesh order: a group over
+    several axes (joined with ``+``) crosses nodes when any of them
+    reaches past 8 ranks; one axis is priced as before."""
+    want = {"NDR": PC.NDR_BW, "ICI": PC.ICI_BW}[link]
+    assert PC.link_bw(mesh_shape, axis) == want
+
+
+def test_a_256_rank_flattened_all_to_all_is_priced_at_ndr():
+    """build_64m at 256 devices: its all-to-alls run over the mesh's
+    flattened group (the default group of the fake 256-rank world), filed
+    under ``data+model`` and priced at NDR's 50 GB/s, not NVLink's."""
+    from repro_torch.launch.mesh import reckoning_mesh
+
+    spec = get_arch("cpqx-engine")
+    with reckoning_mesh(multi_pod=False) as mesh:
+        rec = PC.analyze_step(build_cell(spec, spec.shape("build_64m"),
+                                         mesh=mesh))
+    coll = rec["collectives"]
+    assert set(coll["bytes_by_kind"]) == {"all-to-all"}
+    assert coll["bytes_by_axis"] == {"data+model": coll["total_bytes"]}
+    assert PC.roofline_terms(rec)["t_collective_s"] == \
+        coll["total_bytes"] / PC.NDR_BW
+
+
 HLO = """
 HloModule m
 ENTRY %main (p0: f32[8,128]) -> f32[8,128] {
