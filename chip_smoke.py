@@ -16,7 +16,13 @@ Phases, each printed on its own lines:
                  the packed (N, D, 2) table bit for bit in float32 and
                  bfloat16 (each of its three kernels, a misaligned base and
                  a ragged E at D = 1 included), the packed table held to two
-                 separate reductions;
+                 separate reductions; lane_compact bit for bit at the
+                 engine's shapes (1, 4, 16 and 64 lanes up to 2^23 rows
+                 and a 1-D build relation of 2^26 rows, arity 1 to 3 and
+                 8, counts 0, cap and random, masks from empty to full,
+                 keep bits past the count, a stride-0 column, both of its
+                 tile sizes' edges), eagerly and as replayed CUDA graphs
+                 on new inputs;
                  small CPQx and iaCPQx builds (gmark_citation(500)) held bit
                  for bit against the CPU;
 4. index       — CPQx for gmark_citation(20_000, avg_degree=6, seed=3) at k=2
@@ -179,22 +185,25 @@ Phases, each printed on its own lines:
 Each path (phases 4-5, 6, 7, 8's two services, 9 to 25) is driven with the
 launch counts set to 0 just before it and read just after (phases 24 and
 25: the parent half, then in each rank just before its half); a path that never
-launched one of its kernels fails.  The GNN models' kernel set is empty
+launched one of its kernels fails.  lane_compact runs every rel_compact
+on the card, so every path that builds an index or runs a query has it;
+phases 21 (the engine cells) and 25 have it alone.  The GNN models'
+kernel set is empty
 (their substrate op is index_add, and no architecture calls edge_softmax):
 phase 16 fails if they launch any; the features driver's CPQx build must
 launch fingerprint_rows.  The LM and recsys paths' kernel sets are empty
 too (attention, MoE dispatch and EmbeddingBag are einsums, a stable sort
 and index_add, as they are XLA ops in the reference): phases 17 and 18
-fail if any of the four kernels launches, and so do phases 19-22 (the
-train steps' autograd; the engine cells' relational.py operators; the
-meta traces and the compress check's torch ops), 24 (the sharded LM
-step's DTensor ops and autograd, in the parent and in every rank) and 25
-(the sharded GNN step's index_add and autograd, the engine cells'
-relational.py operators).  A graph replay adds the launches its
+fail if any of the five kernels launches, and so do phases 19, 20 and
+22 (the train steps' autograd; the meta traces and the compress check's
+torch ops) and 24 (the sharded LM step's DTensor ops and autograd, in
+the parent and in every rank); phases 21 and 25 (the sharded GNN step's
+index_add and autograd, the engine cells' relational.py operators) fail
+if any kernel but lane_compact launches, or it never does.  A graph replay adds the launches its
 capture recorded, so the counts are the kernels that ran.  The cluster's
 kernels run in its worker processes, which report their launches at each
 CHECKPOINT barrier; phase 15 sums those reports, and phase 23 sums its
-ranks' (each rank must launch both query-path kernels).  The last two lines are
+ranks' (each rank must launch both query-path kernels and lane_compact).  The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}.  Any failure
 exits non-zero; without a CUDA card, or outside a checkout of the
 repository, the script exits non-zero before printing any result.
@@ -275,8 +284,12 @@ KERNELS = {
                          "src/repro/kernels/fingerprint.py:53"),
     "segment_softmax": ("src/repro_torch/kernels/csrc/segment_softmax.cu",
                         "src/repro/kernels/segment_softmax.py:40"),
+    # replaces no TPU kernel: the reference's rel_compact is a stable lax.sort
+    "lane_compact": ("src/repro_torch/kernels/csrc/lane_compact.cu", None),
 }
-INDEX_KERNELS = ("sorted_member_mask", "expand_join_gather", "fingerprint_rows")
+INDEX_KERNELS = ("sorted_member_mask", "expand_join_gather", "fingerprint_rows",
+                 "lane_compact")
+QUERY_KERNELS = ("sorted_member_mask", "expand_join_gather", "lane_compact")
 
 
 def fail(msg: str, code: int = 1):
@@ -821,6 +834,126 @@ def check_parity(name, kernel, plain, cases) -> int:
     return worst
 
 
+# (lanes, cap, arity) of lane_compact's parity: the engine's lane counts
+# (1 a build, up to 64 a batch), one row short of, at and past both of its
+# tile sizes (1 024 and 4 096 rows; 300 and 264 lanes take the larger),
+# up to the join cap of 2^23 rows, and its most columns, 8
+LANE_COMPACT_CASES = [
+    (1, 1, 1), (1, 1023, 2), (1, 1024, 3), (1, 1025, 1), (3, 4095, 2),
+    (3, 4096, 2), (3, 4097, 3), (300, 4095, 2), (300, 4097, 1),
+    (264, 3 * 4096 + 5, 3), (1, 1 << 20, 2), (1, 1 << 23, 3),
+    (4, (1 << 20) + 3, 2), (4, 1 << 23, 1), (16, 1 << 23, 2),
+    (64, 1 << 21, 3), (2, 1000, 8)]
+LANE_COMPACT_BUILD_CAP = 1 << 26  # a 1-D relation, as phase 21's join has
+LANE_COMPACT_GRAPHS = [(16, 1 << 20, 2), (1, 1 << 20, 3)]
+LANE_COMPACT_REPLAYS = 3
+
+
+def compact_case(lanes, cap, arity, gen, dev, shared=True):
+    """lane_compact's inputs: random columns (with ``shared``, the last one
+    is one row every lane reads through a stride-0 expand, as
+    ``identity_pairs`` makes), counts cap, 0 and random in turn, and keep
+    masks from empty to full with bits set past each lane's count."""
+    import torch
+
+    def col(rows):
+        return torch.randint(-2**31, 2**31 - 1, (rows, cap), dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    cols = [col(lanes) for _ in range(arity)]
+    if shared and arity > 1 and lanes > 1:
+        cols[-1] = col(1).expand(lanes, cap)
+    count = torch.randint(0, cap + 1, (lanes,), dtype=torch.int32, device=dev,
+                          generator=gen)
+    count[0::3] = cap
+    count[1::3] = 0
+    density = torch.tensor([0.5, 1.0, 0.0, 0.01, 0.99], device=dev)
+    p = density[torch.arange(lanes, device=dev) % len(density)][:, None]
+    keep = torch.rand((lanes, cap), device=dev, generator=gen) < p
+    return tuple(cols), count, keep
+
+
+def check_lane_compact(dev) -> int:
+    """Phase 3's lane_compact: ``ops.lane_compact`` (as ``rel_compact``
+    calls it) against the plain version bit for bit on
+    ``LANE_COMPACT_CASES``; ``rel_compact`` of a 1-D relation of
+    ``LANE_COMPACT_BUILD_CAP`` rows; CUDA graphs captured once and replayed
+    on new inputs, each replay held to the plain version and counted by
+    ``launch_counts``; the binding's refusals.  Returns the largest
+    absolute difference (0)."""
+    import torch
+    from repro_torch.core import relational as R
+    from repro_torch.core.executables import CapturedGraph
+    from repro_torch.kernels import lane_compact, ops, ref
+
+    def kernel(*a):
+        cols, count = ops.lane_compact(a[:-2], a[-2], a[-1])
+        return (*cols, count)
+
+    def plain(*a):
+        cols, count = ref.lane_compact(a[:-2], a[-2], a[-1])
+        return (*cols, count)
+
+    def args(case):
+        cols, count, keep = case
+        return (*cols, count, keep)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    before = ops.launch_counts()["lane_compact"]
+    worst = check_parity("lane_compact", kernel, plain, (
+        args(compact_case(*c, gen, dev)) for c in LANE_COMPACT_CASES))
+    if ops.launch_counts()["lane_compact"] - before != len(LANE_COMPACT_CASES):
+        fail("lane_compact: launch_counts did not count each call once")
+
+    cols, count, keep = compact_case(1, LANE_COMPACT_BUILD_CAP, 3, gen, dev)
+    sticky = torch.tensor(True, device=dev)
+
+    def through_rel(*a):
+        out = R.rel_compact(R.Relation(a[:-2], a[-2], sticky), a[-1])
+        if out.count.dim() != 0 or not bool(out.overflow):
+            fail("lane_compact: rel_compact of a 1-D relation lost its shape "
+                 "or its overflow flag")
+        return (*out.cols, out.count)
+
+    worst = max(worst, check_parity(
+        "lane_compact (rel_compact, 1-D)", through_rel, plain,
+        [(*(c[0] for c in cols), count[0] // 2, keep[0])]))
+    del cols, count, keep
+
+    for lanes, cap, arity in LANE_COMPACT_GRAPHS:
+        inputs = args(compact_case(lanes, cap, arity, gen, dev, shared=False))
+        before = ops.launch_counts()["lane_compact"]
+        graph = CapturedGraph(kernel, inputs)  # its warm-up launches once
+        for _ in range(LANE_COMPACT_REPLAYS):
+            new = args(compact_case(lanes, cap, arity, gen, dev, shared=False))
+            for dst, src in zip(inputs, new):
+                dst.copy_(src)
+            got = graph.replay()
+            worst = max(worst, check_parity(
+                f"lane_compact (graph replay, {lanes} x {cap})",
+                lambda *a: got, plain, [inputs]))
+        if ops.launch_counts()["lane_compact"] - before \
+                != 1 + LANE_COMPACT_REPLAYS:
+            fail("lane_compact: graph replays were not counted")
+        del graph, inputs
+
+    c, n, k = compact_case(4, 4096, 1, gen, dev)
+    c = c[0]
+    before = lane_compact.launches
+    for bad in ((c, n, k.to(torch.uint8)), (c, n.long(), k),
+                (c[:, ::2], n, k[:, ::2]), (c[:, :-1], n, k),
+                (c.t().contiguous().t(), n, k), (c.cpu(), n, k)):
+        try:
+            lane_compact.lane_compact((bad[0],), bad[1], bad[2])
+        except ValueError:
+            continue
+        fail("lane_compact: the binding took an input it cannot take")
+    if lane_compact.launches != before:
+        fail("lane_compact: a refused call launched")
+    torch.cuda.empty_cache()
+    return worst
+
+
 # ---------------------------------------------------------------------- #
 # the plain reference of RPQ answers: a boolean scipy.sparse fixpoint
 # ---------------------------------------------------------------------- #
@@ -1202,7 +1335,7 @@ def cluster_phase(index, rebuild, per_template, engine, kind, ckpt_dir,
         runtime.shutdown()
     say(f"[cluster] phase {time.perf_counter() - t_phase:.1f} s; kernel "
         f"launches in the workers {worker_counts}")
-    for name in ("sorted_member_mask", "expand_join_gather"):
+    for name in QUERY_KERNELS:
         if worker_counts[name] == 0:
             fail(f"the cluster path never launched {name} in a worker")
     return worker_counts
@@ -3131,7 +3264,8 @@ def pg_rank(rank: int, world: int, job: dict) -> dict:
     from repro_torch.core.distributed import ShardedBackend, make_process_mesh
     from repro_torch.core.engine import Engine
     from repro_torch.core.index import CPQxIndex
-    from repro_torch.kernels import (expand_join, fingerprint, segment_softmax,
+    from repro_torch.kernels import (expand_join, fingerprint, lane_compact,
+                                     segment_softmax,
                                      sorted_intersect)
     from repro_torch.launch.steps import engine_build_step
     from repro_torch.train import compress as C
@@ -3210,7 +3344,8 @@ def pg_rank(rank: int, world: int, job: dict) -> dict:
         ("sorted_member_mask", sorted_intersect),
         ("expand_join_gather", expand_join),
         ("fingerprint_rows", fingerprint),
-        ("segment_softmax", segment_softmax))}
+        ("segment_softmax", segment_softmax),
+        ("lane_compact", lane_compact))}
     del engine, restored, index
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -3266,7 +3401,8 @@ def pg_rank(rank: int, world: int, job: dict) -> dict:
         mods = {"sorted_member_mask": sorted_intersect,
                 "expand_join_gather": expand_join,
                 "fingerprint_rows": fingerprint,
-                "segment_softmax": segment_softmax}
+                "segment_softmax": segment_softmax,
+                "lane_compact": lane_compact}
         for mod in mods.values():
             mod.launches = 0
         t0 = time.perf_counter()
@@ -3279,7 +3415,8 @@ def pg_rank(rank: int, world: int, job: dict) -> dict:
         mods = {"sorted_member_mask": sorted_intersect,
                 "expand_join_gather": expand_join,
                 "fingerprint_rows": fingerprint,
-                "segment_softmax": segment_softmax}
+                "segment_softmax": segment_softmax,
+                "lane_compact": lane_compact}
         for mod in mods.values():
             mod.launches = 0
         t0 = time.perf_counter()
@@ -3441,7 +3578,7 @@ def process_group_phase(dev, kind: str, job: dict, sh13: dict,
         f"each rank's mean and residual equal the in-process result at {n} "
         f"shards on the card bit for bit")
     for r in results:
-        for name in ("sorted_member_mask", "expand_join_gather"):
+        for name in QUERY_KERNELS:
             if r["launches"][name] == 0:
                 fail(f"process_group: rank {r['rank']} never launched {name}")
     counts = {name: sum(r["launches"][name] for r in results)
@@ -4059,9 +4196,10 @@ def mesh_cells_check(mc: dict, results: list, engine21: dict) -> dict:
                 or r["e"]["c"]["calls"]:
             fail(f"mesh_cells: rank {s}'s query_s shard differs from phase "
                  f"21's, or it called {r['e']['c']['calls']}")
-        if any(r["e"]["launches"].values()):
+        if not r["e"]["launches"]["lane_compact"] or any(
+                n for k, n in r["e"]["launches"].items() if k != "lane_compact"):
             fail(f"mesh_cells: rank {s} launched {r['e']['launches']}; the "
-                 "path's kernel set is empty")
+                 "path's kernel set is lane_compact alone")
     return {name: sum(r["e"]["launches"][name] for r in results)
             for name in KERNELS}
 
@@ -4125,8 +4263,9 @@ def main() -> int:
     from repro_torch.core.maintenance import MaintainableIndex
     from repro_torch.data.graphs import gmark_citation
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels import (autotune, expand_join, fingerprint, ops,
-                                     ref, segment_softmax, sorted_intersect)
+    from repro_torch.kernels import (autotune, expand_join, fingerprint,
+                                     lane_compact, ops, ref, segment_softmax,
+                                     sorted_intersect)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -4159,11 +4298,13 @@ def main() -> int:
     kernel_fns = {"sorted_member_mask": sorted_intersect.sorted_member_mask,
                   "expand_join_gather": expand_join.expand_join_gather,
                   "fingerprint_rows": fingerprint.fingerprint_rows,
-                  "segment_softmax": segment_softmax.segment_normalize}
+                  "segment_softmax": segment_softmax.segment_normalize,
+                  "lane_compact": ops.lane_compact}
     plain_fns = {"sorted_member_mask": ref.sorted_member_mask,
                  "expand_join_gather": ref.expand_join_gather,
                  "fingerprint_rows": ref.fingerprint_rows,
-                 "segment_softmax": ref.segment_normalize}
+                 "segment_softmax": ref.segment_normalize,
+                 "lane_compact": ref.lane_compact}
     m_cases, j_cases = member_cases(rng, dev), join_cases(rng, dev)
     err = {
         "sorted_member_mask": check_parity(
@@ -4215,6 +4356,16 @@ def main() -> int:
         f"row tiles at D = 2, 8, 70, 300 and 1 100: packed table equal to the "
         f"separate reductions; kernel bit-exact against its plain version on "
         f"the same table (tolerance 0); max abs err {softmax_err}")
+    t0 = time.perf_counter()
+    err["lane_compact"] = check_lane_compact(dev)
+    say(f"[parity] lane_compact at (lanes, cap, arity) {LANE_COMPACT_CASES}, "
+        f"a stride-0 column each where lanes and arity > 1, counts cap, 0 "
+        f"and random, keep densities 0.5, 1, 0, 0.01, 0.99 with bits past "
+        f"the count; rel_compact of a 1-D relation of "
+        f"{LANE_COMPACT_BUILD_CAP} rows; CUDA graphs at {LANE_COMPACT_GRAPHS} "
+        f"replayed {LANE_COMPACT_REPLAYS} times on new inputs, each replay "
+        f"counted: bit-exact (tolerance 0); bad inputs refused before a "
+        f"launch; {time.perf_counter() - t0:.1f} s")
 
     # small builds on the card held bit for bit against the CPU builds
     g_small = gmark_citation(500, avg_degree=6, seed=SEED)
@@ -4242,7 +4393,8 @@ def main() -> int:
     counters = {"sorted_member_mask": sorted_intersect,
                 "expand_join_gather": expand_join,
                 "fingerprint_rows": fingerprint,
-                "segment_softmax": segment_softmax}
+                "segment_softmax": segment_softmax,
+                "lane_compact": lane_compact}
 
     def record(name, args, work):
         if not recording[0]:  # the calibration's synthetic inputs
@@ -4512,7 +4664,7 @@ def main() -> int:
 
     # ---- 7. lazy maintenance (counts to 0 just before) --------------- #
     zero_counts()
-    maint_kernels = ("sorted_member_mask", "expand_join_gather")
+    maint_kernels = QUERY_KERNELS
     g_m = g if MAINT_VERTICES == N_VERTICES else gmark_citation(
         MAINT_VERTICES, avg_degree=6, seed=SEED)
     probe, _ = draw_queries(g_m, SparseReference(g_m), 1, 10_000)
@@ -4673,8 +4825,7 @@ def main() -> int:
     tenant_report("serving", svc2.stats, [r for r, _ in accepted2], wall2)
     say(cache_line("read-path service engine", engine))
     path_counts["serving"] = read_counts(
-        "serving read path (QueryService over CPQx)",
-        ("sorted_member_mask", "expand_join_gather"))
+        "serving read path (QueryService over CPQx)", QUERY_KERNELS)
 
     # ---- 8. serving: write path + adaptation over phase 7's mirror ---- #
     zero_counts()
@@ -4997,7 +5148,7 @@ def main() -> int:
         f"({Path(table_path).stat().st_size} bytes)")
     path_counts["calibrate"] = read_counts(
         "calibrate (calibrate + autotune + calibrated engine + SLO service)",
-        ("sorted_member_mask", "expand_join_gather"))
+        QUERY_KERNELS)
 
     # ---- 12. lifecycle: save / restore / promote (counts to 0 before) -- #
     from repro_torch.checkpoint import committed_steps
@@ -5088,7 +5239,7 @@ def main() -> int:
         f"reference")
     path_counts["lifecycle"] = read_counts(
         "lifecycle (restored index + promoted replica + update batch)",
-        ("sorted_member_mask", "expand_join_gather"))
+        QUERY_KERNELS)
     costmodel.activate(None)
     del replica, wsvc, mia, ia_engine, ssvc, cal_engine  # mirrors: gigabytes
 
@@ -5219,7 +5370,7 @@ def main() -> int:
         f"{time.perf_counter() - t_sharded:.1f} s")
     path_counts["sharded"] = read_counts(
         f"sharded (shard_index, {SHARDS}-shard engine, batch, retry, restore)",
-        ("sorted_member_mask", "expand_join_gather"))
+        QUERY_KERNELS)
     del sh_engine, two_engine, two, live, gathered
     shutil.move(idx_dir, pg_root / "index")  # phase 12's save, for phase 23
     pg_job.update(index_dir=str(pg_root / "index"), sharded_dir=sh_dir)
@@ -5279,7 +5430,8 @@ def main() -> int:
     zero_counts()
     gnn_features_phase()
     path_counts["gnn_features"] = read_counts(
-        "gnn_features (CPQx build + GatedGCN steps)", ("fingerprint_rows",))
+        "gnn_features (CPQx build + GatedGCN steps)",
+        ("fingerprint_rows", "lane_compact"))
 
     # ---- 17-18. lm and recsys serving ---------------------------------- #
     # Their kernel sets are empty: attention, MoE and EmbeddingBag are
@@ -5296,21 +5448,24 @@ def main() -> int:
                  "set is empty")
 
     # ---- 19-21. lm and recsys training, the engine cells --------------- #
-    # Their kernel sets are empty too: the train steps are the models'
-    # library ops and autograd, the engine cells relational.py's torch ops
-    # (expansion_join, sorts, searchsorted), as they are XLA ops in the
-    # reference.
-    for name, phase in (("lm_train", lm_train_phase),
-                        ("recsys_train", recsys_train_phase),
-                        ("engine", lambda d: engine_phase(
-                            d, pg_root / "engine"))):
+    # The train steps' kernel sets are empty too: they are the models'
+    # library ops and autograd, as they are XLA ops in the reference.  The
+    # engine cells are relational.py's torch ops (expansion_join, sorts,
+    # searchsorted), whose compactions are lane_compact.
+    for name, phase, kernel_set in (
+            ("lm_train", lm_train_phase, ()),
+            ("recsys_train", recsys_train_phase, ()),
+            ("engine", lambda d: engine_phase(d, pg_root / "engine"),
+             ("lane_compact",))):
         torch.cuda.empty_cache()
         zero_counts()
         measured[name] = phase(dev)
-        path_counts[name] = read_counts(f"{name} (kernel set: none)", ())
-        if any(path_counts[name].values()):
+        path_counts[name] = read_counts(
+            f"{name} (kernel set: {', '.join(kernel_set) or 'none'})",
+            kernel_set)
+        if any(n for k, n in path_counts[name].items() if k not in kernel_set):
             fail(f"the {name} path launched {path_counts[name]}; its kernel "
-                 "set is empty")
+                 f"set is {', '.join(kernel_set) or 'empty'}")
 
     # ---- 22. reckon: the meta-device dry run against phases 16-21 ------ #
     # Its kernel set is empty: the traces run on the meta device, and the
@@ -5377,9 +5532,10 @@ def main() -> int:
     in_ranks = mesh_cells_check(mc, results, measured["engine"])
     path_counts["mesh_cells"] = {name: mc_parent[name] + in_ranks[name]
                                  for name in KERNELS}
-    if any(path_counts["mesh_cells"].values()):
+    if any(n for k, n in path_counts["mesh_cells"].items()
+           if k != "lane_compact"):
         fail(f"the mesh_cells path launched {path_counts['mesh_cells']}; its "
-             "kernel set is empty")
+             "kernel set is lane_compact alone")
     t_ranks = max(r["e"]["s"] for r in results)
     say(f"[mesh_cells (parent and ranks)] kernel launches "
         f"{path_counts['mesh_cells']}; phase {t_mc + t_ranks:.1f} s (parent "
@@ -5455,10 +5611,23 @@ def main() -> int:
         return (bytes_, ops_, None,
                 f"E={e} D={d} N={n} {str(x.dtype).replace('torch.', '')}")
 
+    def compact_work(cols, count, keep):
+        lanes, cap = keep.shape
+        arity = len(cols)
+        live = torch.arange(cap, device=dev)[None, :] < count[:, None]
+        kept = int((keep & live).sum())
+        # what the function needs: the mask, each column's kept rows read
+        # and every slot of each column written (the design reads the mask
+        # twice: not counted)
+        bytes_ = lanes * cap + 4 * arity * (kept + lanes * cap)
+        return (bytes_, 0, lambda: torch.cumsum(keep, -1),
+                f"lanes={lanes} cap={cap} arity={arity} kept={kept}")
+
     work_of = {"sorted_member_mask": member_work,
                "expand_join_gather": gather_work,
                "fingerprint_rows": fingerprint_work,
-               "segment_softmax": softmax_work}
+               "segment_softmax": softmax_work,
+               "lane_compact": compact_work}
 
     def timed(name, args, where):
         bytes_, ops_, lib_fn, shape = work_of[name](*args)
@@ -5498,10 +5667,26 @@ def main() -> int:
             softmax_rec = (x.numel() * x.element_size(), rec)
         del table
 
+    # lane_compact at a build's shape and at 16 lanes of the join cap, keep
+    # one half, count cap - 3; the library yardstick is the plain path's
+    # torch.cumsum alone
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for lanes, cap in ((1, 1 << 20), (16, 1 << 23)):
+        args = (tuple(torch.randint(0, 1 << 30, (lanes, cap), dtype=torch.int32,
+                                    device=dev, generator=gen)
+                      for _ in range(2)),
+                torch.full((lanes,), cap - 3, dtype=torch.int32, device=dev),
+                torch.rand((lanes, cap), device=dev, generator=gen) < 0.5)
+        compact_rec = timed("lane_compact", args, f"{lanes} x {cap} rows")
+        del args
+    torch.cuda.empty_cache()
+
     out = []
     for name, (src, replaces) in KERNELS.items():
         if name == "segment_softmax":  # its path's largest call, timed above
             rec = softmax_rec[1]
+        elif name == "lane_compact":  # 16 lanes of the join cap, timed above
+            rec = compact_rec
         else:
             rec = timed(name, recorded[name][1], "the paths' largest call")
         out.append({"name": name, "route": "cuda", "source": src,

@@ -20,8 +20,9 @@ Design notes, and what differs from a straight transcription:
 * multi-key stable sort -> least-significant-key-first chain of stable
   ``torch.sort`` passes, two int32 keys packed into one int64 per pass
   (order-preserving for any int32 values, -1 and SENTINEL included);
-* compaction            -> cumsum destinations + one scatter (kept rows
-  keep their order, exactly like a stable sort on the keep flag);
+* compaction            -> on the card the ``lane_compact`` kernel, on the
+  CPU cumsum destinations + one scatter (kept rows keep their order,
+  exactly like a stable sort on the keep flag);
 * binary search         -> branch-free fixed-trip-count loop of gathers
   (k-column rows have no ``torch.searchsorted``);
 * uint32 hashing        -> int64 lanes masked to 32 bits, every 32x32
@@ -166,21 +167,36 @@ def rel_sort(rel: Relation, num_keys: int | None = None) -> Relation:
 
 
 def rel_compact(rel: Relation, keep: torch.Tensor) -> Relation:
-    """Stable-move rows with keep=True to the front; drop the rest."""
-    keep = keep & valid_mask(rel)
-    cap = rel.capacity
+    """Stable-move rows with keep=True to the front; drop the rest.  On
+    the card the ``lane_compact`` kernel, on the CPU :func:`lane_compact`
+    (``kernels.ops`` dispatches by device)."""
+    from ..kernels import ops  # not at the top: kernels.ref imports this module
+
+    cols, count = ops.lane_compact(rel.cols, rel.count, keep)
+    return Relation(cols, count, rel.overflow)
+
+
+def lane_compact(cols: Sequence[torch.Tensor], count: torch.Tensor,
+                 keep: torch.Tensor) -> tuple:
+    """Stable compaction of parallel (..., cap) int32 columns, lane by
+    lane: rows below ``count`` whose ``keep`` is set move to the front in
+    their order; every other slot holds SENTINEL.  Returns (columns, new
+    count).  The plain version of the ``lane_compact`` CUDA kernel."""
+    cap = cols[0].shape[-1]
+    keep = keep & (torch.arange(cap, dtype=I32, device=count.device)
+                   < count.unsqueeze(-1))
     new_count = keep.sum(-1, dtype=I32)
     # kept row i goes to slot (number of kept rows before it); dropped rows
     # land in one trash slot past the end
     dest = torch.cumsum(keep, -1) - 1
     dest = torch.where(keep, dest, cap)
-    cols = []
-    for c in rel.cols:
-        buf = torch.full(rel.count.shape + (cap + 1,), SENTINEL, dtype=I32,
+    out = []
+    for c in cols:
+        buf = torch.full(count.shape + (cap + 1,), SENTINEL, dtype=I32,
                          device=c.device)
         buf.scatter_(-1, dest, c)
-        cols.append(buf[..., :cap])
-    return Relation(tuple(cols), new_count, rel.overflow)
+        out.append(buf[..., :cap])
+    return tuple(out), new_count
 
 
 def rel_unique(rel: Relation, num_keys: int | None = None) -> Relation:

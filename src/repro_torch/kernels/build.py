@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
-SOURCES = ("sorted_intersect", "expand_join", "fingerprint", "segment_softmax")
+SOURCES = ("sorted_intersect", "expand_join", "fingerprint", "segment_softmax",
+           "lane_compact")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

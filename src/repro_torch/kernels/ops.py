@@ -5,7 +5,9 @@ failure raises.  CPU tensors go to the plain PyTorch version in
 ``ref.py``.  There is no other route: no size ceiling and no switch.
 
 The two query-path kernels take a leading lane dimension (one lane per
-query of a batch); ``fingerprint_rows`` takes 1-D build columns;
+query of a batch); ``lane_compact`` takes the columns of any relation,
+1-D (the build) or lane-batched (the query walker);
+``fingerprint_rows`` takes 1-D build columns;
 ``segment_softmax`` takes (E, D) scores of any E (no block padding).
 
 The two query-path kernels launch their binding's ``DEFAULT_THREADS``
@@ -26,6 +28,7 @@ import torch
 
 from . import expand_join as _ej
 from . import fingerprint as _fp
+from . import lane_compact as _lc
 from . import ref
 from . import segment_softmax as _ss
 from . import sorted_intersect as _si
@@ -36,7 +39,8 @@ tuned_generation = 0  # bumped by every set_tuned_blocks
 
 # the bindings whose ``launches`` count kernel launches
 _COUNTED = {"sorted_member_mask": _si, "expand_join_gather": _ej,
-            "fingerprint_rows": _fp, "segment_softmax": _ss}
+            "fingerprint_rows": _fp, "segment_softmax": _ss,
+            "lane_compact": _lc}
 
 
 def launch_counts() -> dict[str, int]:
@@ -124,6 +128,27 @@ def fingerprint_rows(cols, salt: int = 0) -> tuple:
     if cols[0].is_cuda:
         return _fp.fingerprint_rows(tuple(c.contiguous() for c in cols), salt)
     return ref.fingerprint_rows(cols, salt)
+
+
+def lane_compact(cols, count: torch.Tensor, keep: torch.Tensor) -> tuple:
+    """Stable compaction of parallel (..., cap) int32 columns, lane by
+    lane: rows below ``count`` whose ``keep`` is set move to the front in
+    their order, every other slot holds SENTINEL.  Returns (columns of
+    ``count``'s shape + (cap,), new count of ``count``'s shape)."""
+    if cols[0].is_cuda:
+        lead, cap = tuple(count.shape), cols[0].shape[-1]
+        lanes = count.numel()
+
+        def rows(x):
+            x = x.expand(lead + (cap,)).reshape(lanes, cap)
+            return x if cap < 2 or x.stride(1) == 1 else x.contiguous()
+
+        out, new_count = _lc.lane_compact(
+            tuple(rows(c) for c in cols), count.reshape(lanes).contiguous(),
+            rows(keep))
+        return (tuple(o.view(lead + (cap,)) for o in out),
+                new_count.view(lead))
+    return ref.lane_compact(cols, count, keep)
 
 
 def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,

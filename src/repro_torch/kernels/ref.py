@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the four CUDA kernels — what ``ops`` runs
+"""Plain PyTorch versions of the five CUDA kernels — what ``ops`` runs
 for tensors on the CPU, and what the kernels are held against on the card.
 
 The two query-path kernels take a leading lane dimension: per-lane inputs
 are (B, n), per-lane scalars (B,), and the shared build-side columns of
 ``expand_join_gather`` are 1-D.  ``fingerprint_rows`` is the substrate's
-own int64-lane hash.
+own int64-lane hash, and ``lane_compact`` its cumsum-and-scatter
+compaction.
 
 ``segment_softmax`` is the reference's ``ref.segment_softmax``: the two
 segment reductions (``segment_tables``, which fill one packed (N, D, 2)
@@ -22,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from ..core.relational import fingerprint_rows  # noqa: F401  (the plain version)
+# the plain versions of two kernels live in the substrate
+from ..core.relational import fingerprint_rows, lane_compact  # noqa: F401
 
 SENTINEL = 2**31 - 1
 

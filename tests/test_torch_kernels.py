@@ -1,9 +1,9 @@
-"""The plain PyTorch versions of the port's four kernels
+"""The plain PyTorch versions of the port's four TPU-ported kernels
 (``repro_torch.kernels.ref``, what ``ops`` runs for CPU tensors) held bit
 for bit against the JAX package's ``kernels.ops`` (Pallas in interpret
 mode on the CPU), lane by lane, on the reference kernel tests' shapes.
-The CUDA kernels themselves are held against these plain versions on the
-card by ``chip_smoke.py``."""
+The CUDA kernels themselves, ``lane_compact`` among them, are held
+against these plain versions on the card by ``chip_smoke.py``."""
 
 import numpy as np
 import pytest
@@ -14,8 +14,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.kernels import expand_join, fingerprint, ops, ref, sorted_intersect  # noqa: E402
-from repro_torch.kernels import segment_softmax  # noqa: E402
+from repro_torch.kernels import expand_join, fingerprint, lane_compact, ops, ref  # noqa: E402
+from repro_torch.kernels import segment_softmax, sorted_intersect  # noqa: E402
 from repro_torch.models.gnn import edge_softmax  # noqa: E402
 
 SENTINEL = 2**31 - 1
@@ -135,16 +135,17 @@ def test_fingerprint_rows_padding_values(salt, n_cols):
 
 def test_cpu_tensors_take_the_plain_version():
     """CPU tensors never reach a CUDA kernel, so no launch is counted."""
-    before = (sorted_intersect.launches, expand_join.launches,
-              fingerprint.launches)
+    before = ops.launch_counts()
     hay = torch.tensor([[1, 3, 5]], dtype=torch.int32)
     one = torch.tensor([3], dtype=torch.int32)
     ops.sorted_member_mask(hay, one, hay)
     ops.expand_join_gather(one[None], torch.zeros(1, 1, dtype=torch.int32),
                            one[None], hay[0], hay[0], one, 4)
     ops.fingerprint_rows((hay[0], hay[0]), salt=1)
-    assert (sorted_intersect.launches, expand_join.launches,
-            fingerprint.launches) == before
+    cols, count = ops.lane_compact((hay, hay), one - 1, hay > 1)
+    assert [c.tolist() for c in cols] == [[[3, SENTINEL, SENTINEL]]] * 2
+    assert count.tolist() == [1]
+    assert ops.launch_counts() == before
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -158,6 +159,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                        one, 4)
     with pytest.raises(ValueError, match="CUDA"):
         fingerprint.fingerprint_rows((one, one), salt=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        lane_compact.lane_compact((hay, hay), one, hay > 1)
 
 
 @pytest.mark.parametrize("n_cols", [0, fingerprint.MAX_COLS + 1])
@@ -166,6 +169,13 @@ def test_fingerprint_wrapper_refuses_column_counts_it_cannot_take(n_cols):
     with pytest.raises(ValueError, match="columns"):
         fingerprint.fingerprint_rows(cols)
 
+
+@pytest.mark.parametrize("n_cols", [0, lane_compact.MAX_COLS + 1])
+def test_lane_compact_wrapper_refuses_column_counts_it_cannot_take(n_cols):
+    cols = tuple(torch.zeros(2, 8, dtype=torch.int32) for _ in range(n_cols))
+    with pytest.raises(ValueError, match="columns"):
+        lane_compact.lane_compact(cols, torch.zeros(2, dtype=torch.int32),
+                                  torch.zeros(2, 8, dtype=torch.bool))
 
 
 # ---- segment_softmax: float32 to 1e-6, bfloat16 to 2e-2 (the reference

@@ -15,6 +15,7 @@ from repro.core import relational as JR  # noqa: E402
 from repro.core.paths import _recap as j_recap  # noqa: E402
 from repro_torch.core import relational as TR  # noqa: E402
 from repro_torch.core.paths import _recap as t_recap  # noqa: E402
+from repro_torch.kernels.lane_compact import TILE  # noqa: E402
 
 SENTINEL = 2**31 - 1
 INT_MIN = -(2**31)
@@ -229,6 +230,127 @@ def test_lane_batched_equals_per_lane(seed):
         # and each lane equals the reference
         _assert_rel(single["join"], J(JR.expansion_join, 2, 3, 4)(
             _jrel(*lanes_a[b]), _jrel(*lanes_b[b]), (1,), (("a", 0), ("b", 1)), 32))
+
+
+# ---------------------------------------------------------------------- #
+# stable compaction: rel_compact, and through it rel_unique and
+# rel_intersect, against numpy on both sides of the lane_compact kernel's
+# tile (the plain version here; the kernel is held to it on the card)
+# ---------------------------------------------------------------------- #
+
+_DENSITIES = (0.5, 1.0, 0.0, 0.01, 0.99)
+# the kernel's two tile sizes (1 024 and 4 096 rows), one row short, exact
+# and one row over
+_TILE_EDGES = [t + d for t in (TILE, 4 * TILE) for d in (-1, 0, 1)]
+
+
+def _np_compact(cols, count, keep):
+    """numpy stable compaction of (lanes, cap) columns: the kept rows below
+    each lane's count in their order, SENTINEL after; and the counts."""
+    lanes, cap = keep.shape
+    out = [np.full((lanes, cap), SENTINEL, np.int32) for _ in cols]
+    counts = np.zeros(lanes, np.int32)
+    for b in range(lanes):
+        rows = np.flatnonzero(keep[b, :max(0, min(int(count[b]), cap))])
+        counts[b] = rows.size
+        for o, c in zip(out, cols):
+            o[b, :rows.size] = c[b, rows]
+    return out, counts
+
+
+def _trel_np(cols, count, ovf):
+    """(lanes, cap) host columns -> a relation: 1-D when there is one lane
+    (the index build's shape), (lanes, cap) otherwise."""
+    one = cols[0].shape[0] == 1
+    return TR.Relation(tuple(c[0] if one else c for c in cols),
+                       torch.from_numpy(count[0, ...] if one else count),
+                       torch.from_numpy(ovf[0, ...] if one else ovf))
+
+
+def _assert_rel_np(rel, cols, count, ovf):
+    """``rel`` (1-D for one lane) equals host (lanes, cap) columns."""
+    one = cols[0].shape[0] == 1
+    assert len(rel.cols) == len(cols)
+    for got, exp in zip(rel.cols, cols):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), exp[0] if one else exp)
+    np.testing.assert_array_equal(rel.count.numpy(), count[0] if one else count)
+    np.testing.assert_array_equal(rel.overflow.numpy(), ovf[0] if one else ovf)
+
+
+@pytest.mark.parametrize("arity", [1, 2, 3])
+@pytest.mark.parametrize("counts", ["zero", "full", "random"])
+@pytest.mark.parametrize("cap", [1, *_TILE_EDGES, 12 * TILE + 123])
+@pytest.mark.parametrize("lanes", [1, 3, 16])
+def test_rel_compact_equals_a_stable_compaction(lanes, cap, counts, arity):
+    """Keep bits set at and past each lane's count, masks from empty to
+    full, and (where arity > 1 and lanes > 1) a last column shared by every
+    lane as a stride-0 expand, as ``identity_pairs`` makes."""
+    rng = np.random.default_rng([lanes, cap, len(counts), arity])
+    cols = [rng.integers(INT_MIN, SENTINEL, (lanes, cap)).astype(np.int32)
+            for _ in range(arity)]
+    count = {"zero": np.zeros(lanes), "full": np.full(lanes, cap),
+             "random": rng.integers(0, cap + 1, lanes)}[counts].astype(np.int32)
+    p = np.array([_DENSITIES[b % len(_DENSITIES)] for b in range(lanes)])
+    keep = rng.random((lanes, cap)) < p[:, None]
+    ovf = rng.random(lanes) < 0.5
+    t_cols = [torch.from_numpy(c) for c in cols]
+    if arity > 1 and lanes > 1:
+        cols[-1] = np.broadcast_to(cols[-1][:1], (lanes, cap))
+        t_cols[-1] = t_cols[-1][0].expand(lanes, cap)
+    rel = _trel_np(t_cols, count, ovf)
+    out = TR.rel_compact(rel, torch.from_numpy(keep[0] if lanes == 1 else keep))
+    _assert_rel_np(out, *_np_compact(cols, count, keep), ovf)
+
+
+def _sorted_lanes(rng, lanes, cap, hi):
+    """(lanes, cap) two-column relations sorted on both columns, with
+    duplicate rows, random counts and SENTINEL padding."""
+    cols = [np.full((lanes, cap), SENTINEL, np.int32) for _ in range(2)]
+    count = rng.integers(0, cap + 1, lanes).astype(np.int32)
+    for b in range(lanes):
+        rows = rng.integers(0, hi, (int(count[b]), 2))
+        rows = rows[np.lexsort(rows.T[::-1])]
+        cols[0][b, :count[b]], cols[1][b, :count[b]] = rows.T
+    return cols, count
+
+
+@pytest.mark.parametrize("cap", [TILE - 1, 4 * TILE + 1])
+@pytest.mark.parametrize("lanes", [1, 3, 16])
+def test_rel_unique_and_intersect_equal_numpy(lanes, cap):
+    """``rel_unique`` keeps each group's first row, ``rel_intersect`` the
+    left rows found on the right: both compactions, against numpy."""
+    rng = np.random.default_rng([lanes, cap])
+    cols, count = _sorted_lanes(rng, lanes, cap, hi=64)
+    ovf = rng.random(lanes) < 0.5
+    for nk in (1, 2):
+        valid = np.arange(cap) < count[:, None]
+        first = np.ones((lanes, cap), bool)
+        first[:, 1:] = (np.stack(cols[:nk])[:, :, 1:]
+                        != np.stack(cols[:nk])[:, :, :-1]).any(0)
+        _assert_rel_np(TR.rel_unique(_trel_np(
+            [torch.from_numpy(c) for c in cols], count, ovf), nk),
+            *_np_compact(cols, count, first & valid), ovf)
+
+    def unique(cols, count):
+        out, n = _np_compact(cols, count, np.ones_like(cols[0], bool))
+        first = np.ones_like(out[0], bool)
+        first[:, 1:] = ((out[0][:, 1:] != out[0][:, :-1])
+                        | (out[1][:, 1:] != out[1][:, :-1]))
+        return _np_compact(out, n, first)
+
+    a, na = unique(cols, count)
+    b, nb = unique(*_sorted_lanes(rng, lanes, cap, hi=64))
+    b_ovf = rng.random(lanes) < 0.5
+    found = np.zeros((lanes, cap), bool)
+    for ln in range(lanes):
+        right = set(zip(b[0][ln, :nb[ln]].tolist(), b[1][ln, :nb[ln]].tolist()))
+        found[ln] = [pair in right
+                     for pair in zip(a[0][ln].tolist(), a[1][ln].tolist())]
+    got = TR.rel_intersect(
+        _trel_np([torch.from_numpy(c) for c in a], na, ovf),
+        _trel_np([torch.from_numpy(c) for c in b], nb, b_ovf), 2)
+    _assert_rel_np(got, *_np_compact(a, na, found), ovf | b_ovf)
 
 
 # ---------------------------------------------------------------------- #
