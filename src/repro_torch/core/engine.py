@@ -71,7 +71,22 @@ class LadderTelemetry:
     ``default_jumps``— escalations that hit the jump-to-default rung
                        (attempt >= 3 — the expensive worst-case dispatch);
     ``union_lanes``  — lanes served through the union executable.
+
+    The batch path also counts how full its capacity-padded lanes are
+    (``FILL``), from what the host holds anyway, with no readback:
+
+    ``answer_rows``    — pairs of each lane's answer (``harvest_batch``);
+    ``answer_cap_rows``— ``pair_cap`` of the rung that answered each lane;
+    ``class_rows``     — class-list entries each lane's lookups cover
+                         (``dispatch_batch``, off ``lookup_ranges``);
+    ``class_cap_rows`` — lookups x ``class_cap`` of each lane's group.
+
+    These four are not dataclass fields: ``dataclasses.asdict`` and ``==``
+    cover the ladder counters alone, the record the reference's
+    ``LadderTelemetry`` keeps too.
     """
+
+    FILL = ("answer_rows", "answer_cap_rows", "class_rows", "class_cap_rows")
 
     queries: int = 0
     dispatches: int = 0
@@ -79,12 +94,20 @@ class LadderTelemetry:
     default_jumps: int = 0
     union_lanes: int = 0
 
+    def __post_init__(self) -> None:
+        for name in self.FILL:
+            setattr(self, name, 0)
+
     def snapshot(self) -> "LadderTelemetry":
-        return dataclasses.replace(self)
+        out = dataclasses.replace(self)
+        for name in self.FILL:
+            setattr(out, name, getattr(self, name))
+        return out
 
     def reset(self) -> None:
         self.queries = self.dispatches = 0
         self.retry_rungs = self.default_jumps = self.union_lanes = 0
+        self.__post_init__()
 
 
 @dataclasses.dataclass
@@ -422,9 +445,14 @@ class Engine:
         if union and self.backend.supports_union:
             groups = self._fuse_stragglers(groups, all_ranges, min_bucket)
 
-        self.telemetry.queries += len(queries)
+        t = self.telemetry
+        t.queries += len(queries)
         for g in groups:
-            self.telemetry.dispatches += 1
+            t.dispatches += 1
+            # a union group's ranges are step-aligned: (0, 0) off its lookups
+            t.class_rows += int(g.ranges[..., 1].sum())
+            t.class_cap_rows += g.caps.class_cap * sum(
+                len(all_ranges[i]) for i in g.members)
             g.handle = self._dispatch_group(g)
         return BatchHandle(results=[None] * len(queries), groups=groups)
 
@@ -489,6 +517,8 @@ class Engine:
                 for lane, r in enumerate(rows):
                     if r is not None:
                         results[pending[lane]] = r
+                        self.telemetry.answer_rows += len(r)
+                        self.telemetry.answer_cap_rows += grp_caps.pair_cap
                 if not overflow.any():
                     break
                 # only the lanes whose own flag tripped climb a rung
