@@ -34,8 +34,11 @@ Phases, each printed on its own lines:
                  every replay of the first pass is held bit for bit to the
                  eager walker (run_plan_ops called directly on the same
                  inputs), with one key replayed for other lookup ranges and
-                 two batches of one key in flight at once; the same draws
-                 through an eager engine give the same-run yardstick;
+                 two batches of one key in flight at once; the first of two
+                 batches harvested while a sleep behind the second still
+                 runs (each harvest waits for its own group's event); the
+                 same draws through an eager engine give the same-run
+                 yardstick;
 6. iacpqx      — iaCPQx of the same graph over six seeded 2-sequences, and the
                  same queries through it;
 7. maintenance — the lazily maintained host mirror of CPQx of
@@ -240,6 +243,7 @@ MAX_ANSWER = 4_194_304  # drop a draw whose reference answer is larger
 MAX_REF_FLOPS = 64_000_000  # ... or whose reference product costs more
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 TRACE_RETRIES = 3  # profiler traces retaken when one lost device events
+READBACK_SLEEP_CYCLES = 500_000_000  # phase 5's sleep behind two batches
 INT_OPS_PER_S = 67e12  # CUDA-core rate (float32 peak) used for int32 work
 SERVE_BURST = 48  # requests a burst; the read service admits 32 at a time
 DRIFT_PER_PHASE = 96  # requests per phase of the drifting write-path stream
@@ -564,16 +568,19 @@ def hold_to_eager(engine, tally: dict) -> None:
     """While ``tally["on"]``, every dispatch of ``engine``'s backend (and of
     each backend a rebind puts in its place) also runs the eager walker —
     ``run_plan_ops`` or ``run_union_batch`` called directly on the same
-    inputs — and its harvest must equal the eager result lane for lane,
-    flags and rows, bit for bit.  ``tally`` counts the dispatches and lanes
-    held."""
+    inputs — and its harvest must equal the eager result read back
+    through ``relational.batch_to_numpy`` (the padded readback) lane for
+    lane, flags and rows, dtype and shape, bit for bit.  ``tally`` counts
+    the dispatches and lanes held."""
     import torch
     from repro_torch.core import backend as B
+    from repro_torch.core import relational as R
 
     def wrap(backend):
         run_async = backend.run_batch_async
         union_async = backend.run_union_batch_async
         harvest = backend.harvest_batch
+        ready = backend.ready
 
         def up(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=backend.device)
@@ -599,14 +606,19 @@ def hold_to_eager(engine, tally: dict) -> None:
                 return harvest(handle)
             _, inner, (rel, overflow) = handle
             rows, flags = harvest(inner)
-            exp_rows, exp_flags = B.CapturedBackend.harvest_batch(
-                backend, ("lanes", rel, overflow))
+            # the eager walker's outputs through the padded readback
+            exp_flags = overflow.cpu().numpy()
+            exp_rows = [None] * exp_flags.shape[0]
+            ok = np.nonzero(~exp_flags)[0]
+            for lane, r in zip(ok, R.batch_to_numpy(rel, lanes=ok)):
+                exp_rows[lane] = r
             if not np.array_equal(flags, exp_flags):
                 fail("a replayed executable's overflow flags differ from the "
                      "eager walker's")
             for lane, (a, b) in enumerate(zip(rows, exp_rows)):
-                if (a is None) != (b is None) or (
-                        a is not None and not np.array_equal(a, b)):
+                if (a is None) != (b is None) or (a is not None and (
+                        a.dtype != b.dtype or a.shape != b.shape
+                        or not np.array_equal(a, b))):
                     fail(f"a replayed executable's lane {lane} differs from "
                          "the eager walker's")
             tally["dispatches"] += 1
@@ -616,6 +628,7 @@ def hold_to_eager(engine, tally: dict) -> None:
         backend.run_batch_async = plan_held
         backend.run_union_batch_async = union_held
         backend.harvest_batch = harvest_held
+        backend.ready = lambda h: ready(h[1] if h[0] == "held" else h)
 
     wrap(engine.backend)
     rebind = engine.rebind
@@ -625,6 +638,67 @@ def hold_to_eager(engine, tally: dict) -> None:
         wrap(engine.backend)
 
     engine.rebind = rebind_held
+
+
+def readback_phase(engine, first: list, second: list, held: dict,
+                   name: str) -> None:
+    """Two batches (``(query, answer)`` lists) dispatched at the default
+    caps (no retry), a sleep of ``READBACK_SLEEP_CYCLES`` enqueued behind
+    them: the first batch's harvest must return while the sleep runs,
+    since a harvest waits for its own groups' events alone.  Prints the
+    share of the engine's group harvests so far that found their group
+    done (``readback_ready`` / ``readback_groups``).  The eager hold is off
+    meanwhile: its padded readback of the eager walker would wait for the
+    whole stream."""
+    import torch
+    from repro_torch.core.backend import QueryCaps
+
+    d = engine._default_caps
+    caps = QueryCaps(d.class_cap, d.pair_cap, 4 * d.join_cap)
+    qs1, qs2 = [q for q, _ in first], [q for q, _ in second]
+    was, held["on"] = held["on"], False
+    try:
+        rungs = engine.telemetry.retry_rungs
+        for qs in (qs1, qs2):  # captures the keys; the caps need no retry
+            engine.execute_batch(qs, caps=caps)
+        if engine.telemetry.retry_rungs != rungs:
+            fail("readback: the default caps climbed a rung")
+        t0 = engine.telemetry.snapshot()
+        start = time.perf_counter()
+        h1 = engine.dispatch_batch(qs1, caps=caps)
+        h2 = engine.dispatch_batch(qs2, caps=caps)
+        torch.cuda._sleep(READBACK_SLEEP_CYCLES)
+        tail = torch.cuda.Event()
+        tail.record()
+        got1 = engine.harvest_batch(h1)
+        harvest_s = time.perf_counter() - start
+        pending = not tail.query()
+        got2 = engine.harvest_batch(h2)
+        tail.synchronize()
+        total_s = time.perf_counter() - start
+    finally:
+        held["on"] = was
+    t = engine.telemetry
+    if not pending:
+        fail(f"readback: the first batch's harvest ({harvest_s:.3f} s) waited "
+             f"for the sleep behind the second ({total_s:.3f} s in all)")
+    if t.retry_rungs != t0.retry_rungs:
+        fail("readback: a lane of the two batches climbed a rung")
+    for part, got in ((first, got1), (second, got2)):
+        for (q, exp), rows in zip(part, got):
+            if not np.array_equal(rows, exp):
+                fail(f"readback: {q!r} differs from the reference")
+    groups = t.readback_groups - t0.readback_groups
+    ready = t.readback_ready - t0.readback_ready
+    say(f"[readback] two batches of {len(qs1)} and {len(qs2)} {name} queries "
+        f"({len(h1.groups)} + {len(h2.groups)} groups) and a "
+        f"{READBACK_SLEEP_CYCLES:.0e}-cycle sleep behind them: the first "
+        f"harvest returned after {1e3 * harvest_s:.1f} ms with the sleep "
+        f"still pending (all done after {1e3 * total_s:.1f} ms); answers "
+        f"equal the reference; {ready} of {groups} harvests found their "
+        f"group done; the engine's readback_ready / readback_groups "
+        f"{t.readback_ready} / {t.readback_groups} "
+        f"({100 * t.readback_ready / max(1, t.readback_groups):.1f} %)")
 
 
 def cache_line(what: str, engine) -> str:
@@ -4620,6 +4694,7 @@ def main() -> int:
         f"{cache.captures - captures} capture(s), {cache.replays - replays} "
         f"replays; each batch's answers equal the reference and the eager "
         f"walker")
+    readback_phase(engine, same[:half], same[half: 2 * half], held, name)
 
     # the same draws eagerly on the card: the same-run yardstick
     eager = eager_engine(index)

@@ -29,8 +29,14 @@ key (``core.executables``).  On the CPU it runs the walker eagerly.
 Every relation in the walker carries a leading *lane* dimension, one
 lane per query of a same-shape batch (a single query is one lane):
 columns (B, cap), counts and overflow flags (B,).  The index arrays are
-1-D and shared by every lane.  Counts and flags stay on the device; the
-host reads a flag only when it harvests a result.
+1-D and shared by every lane.  Counts and flags stay on the device until
+a dispatch ends: then, on the card, the group's (B,) counts and flags
+are copied into pinned host memory behind its outputs and an event is
+recorded after them.  A harvest waits for that event alone, not for the
+batches enqueued behind it, and copies each answered lane's valid
+prefix, on a copy stream, into pinned memory; overflowed lanes and the
+padding past a count are never copied (:meth:`CapturedBackend.
+harvest_batch`).
 
 Evaluation is two-stage exactly as in the paper:
   * class space: LOOKUP returns sorted class-id lists; CONJUNCTION is a
@@ -484,8 +490,9 @@ class ExecutionBackend(abc.ABC):
     #
     # ``*_async`` returns an opaque handle right after the device
     # dispatch; ``harvest_batch`` blocks on it and converts to the
-    # ``run_batch`` result contract.  The defaults run synchronously, so
-    # every backend supports the pipelined drain.
+    # ``run_batch`` result contract, and ``ready`` says whether it would
+    # block.  The defaults run synchronously, so every backend supports
+    # the pipelined drain.
 
     def run_batch_async(self, shape, caps: QueryCaps, ranges: np.ndarray):
         return ("sync", self.run_batch(shape, caps, ranges))
@@ -501,6 +508,12 @@ class ExecutionBackend(abc.ABC):
             return payload[0]
         raise NotImplementedError(tag)
 
+    def ready(self, handle) -> bool:
+        """Whether :meth:`harvest_batch` of ``handle`` would find its work
+        done.  A synchronous handle is; a backend that cannot ask its
+        handles reports False for them."""
+        return handle[0] == "sync"
+
     def close(self) -> None:
         """Drop what the backend holds besides its arrays (captured
         executables); the engine calls it when it replaces the backend."""
@@ -509,7 +522,8 @@ class ExecutionBackend(abc.ABC):
 class CapturedBackend(ExecutionBackend):
     """A backend on one device whose dispatches replay captured
     executables on the card and run eagerly on the CPU, and whose handles
-    carry a batched (B, cap) result relation and its (B,) flags.
+    carry a batched (B, cap) result relation, its (B,) counts and flags
+    and the event that ends the group (:meth:`_lanes`).
 
     ``executables`` is the :class:`ExecutableCache` on the card; it is
     None on the CPU, unless a test sets a cache to check its bookkeeping,
@@ -520,6 +534,9 @@ class CapturedBackend(ExecutionBackend):
 
     device: torch.device
     executables: ExecutableCache | None
+    #: the stream the harvests' answer copies run on (card only, made on
+    #: first use)
+    _copy_stream = None
 
     def close(self) -> None:
         if self.executables is not None:
@@ -542,17 +559,75 @@ class CapturedBackend(ExecutionBackend):
     def run_batch(self, shape, caps: QueryCaps, ranges: np.ndarray):
         return self.harvest_batch(self.run_batch_async(shape, caps, ranges))
 
+    def _lanes(self, v, u, count, overflow) -> tuple:
+        """The handle of a dispatched group whose outputs are ``v``, ``u``
+        (B, cap), ``count`` and ``overflow`` (B,): ``("lanes", rel, count,
+        overflow, event)``.  On the card the counts and flags are copied,
+        without blocking, into pinned host memory and ``event`` is recorded
+        after the copies on the current stream; on the CPU they are host
+        tensors already and ``event`` is None."""
+        rel = R.Relation((v, u), count, overflow)
+        if self.device.type != "cuda":
+            return ("lanes", rel, count, overflow, None)
+        count, overflow = (torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                           .copy_(t, non_blocking=True)
+                           for t in (count, overflow))
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return ("lanes", rel, count, overflow, event)
+
+    def ready(self, handle) -> bool:
+        """Whether a group's outputs, counts and flags are complete: its
+        event has completed, or it ran on the CPU."""
+        if handle[0] != "lanes":
+            return super().ready(handle)
+        event = handle[4]
+        return event is None or event.query()
+
     def harvest_batch(self, handle):
-        """Block on a handle of the ``*_async`` calls and convert."""
+        """Block on a handle of the ``*_async`` calls and convert.
+
+        The harvest waits for the group's own event (the batches dispatched
+        after it run on), reads its counts and flags, and copies the valid
+        prefix ``[0, count)`` of each lane that did not overflow into one
+        pinned host buffer, on the backend's copy stream, which runs beside
+        the compute stream.  Each lane's rows are then an owned (count, 2)
+        int32 array.  On the CPU the same slicing runs without an event or
+        pinned memory."""
         if handle[0] != "lanes":
             return super().harvest_batch(handle)
-        _, rel, overflow = handle
-        overflow = overflow.cpu().numpy()
-        results: list = [None] * overflow.shape[0]
+        _, rel, count, overflow, event = handle
+        stream = None
+        if event is not None:
+            event.synchronize()
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            stream = self._copy_stream
+        overflow = overflow.numpy()
         ok = np.nonzero(~overflow)[0]
-        if ok.size:
-            for lane, rows in zip(ok, R.batch_to_numpy(rel, lanes=ok)):
-                results[lane] = rows
+        sizes = count.numpy()[ok].astype(np.int64)
+        ends = np.cumsum(2 * sizes)
+        total = int(ends[-1]) if ok.size else 0
+        buf = torch.empty(total, dtype=R.I32,
+                          pin_memory=stream is not None and total > 0)
+        if total:
+            v, u = rel.cols
+            if stream is not None:
+                stream.wait_event(event)
+            # ``rel`` keeps the outputs alive until the copies are done
+            with torch.cuda.stream(stream):
+                for lane, n, end in zip(ok, sizes, ends):
+                    if n:
+                        buf[end - 2 * n: end - n].copy_(v[lane, :n],
+                                                        non_blocking=True)
+                        buf[end - n: end].copy_(u[lane, :n], non_blocking=True)
+            if stream is not None:
+                stream.synchronize()
+        host = buf.numpy()
+        results: list = [None] * overflow.shape[0]
+        for lane, n, end in zip(ok, sizes, ends):
+            results[lane] = np.stack((host[end - 2 * n: end - n],
+                                      host[end - n: end]), axis=1)
         return results, overflow
 
 
@@ -587,7 +662,7 @@ class LocalBackend(CapturedBackend):
         ranges = np.asarray(ranges, np.int32)
         v, u, count, overflow = self._launch(
             ("plan", shape, caps, ranges.shape[0]), walk, (ranges,))
-        return ("lanes", R.Relation((v, u), count, overflow), overflow)
+        return self._lanes(v, u, count, overflow)
 
     def run_union_batch(self, opcodes: np.ndarray, caps: QueryCaps,
                         stack_size: int, step_ranges: np.ndarray):
@@ -608,4 +683,4 @@ class LocalBackend(CapturedBackend):
         key = ("union", caps, stack_size, opcodes.shape[1], opcodes.shape[0])
         v, u, count, overflow = self._launch(
             key, interpret, (opcodes, np.asarray(step_ranges, np.int32)))
-        return ("lanes", R.Relation((v, u), count, overflow), overflow)
+        return self._lanes(v, u, count, overflow)

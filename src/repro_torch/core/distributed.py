@@ -764,4 +764,4 @@ class ShardedBackend(B.CapturedBackend):
         ranges = np.asarray(ranges, np.int32)
         v, u, count, overflow = self._launch(
             ("plan", shape, caps, ranges.shape[0]), walk, (ranges,))
-        return ("lanes", R.Relation((v, u), count, overflow), overflow)
+        return self._lanes(v, u, count, overflow)

@@ -24,6 +24,7 @@ dispatch, and regular path queries (``execute_rpq``, ``core.rpq``).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -81,12 +82,22 @@ class LadderTelemetry:
                          (``dispatch_batch``, off ``lookup_ranges``);
     ``class_cap_rows`` — lookups x ``class_cap`` of each lane's group.
 
-    These four are not dataclass fields: ``dataclasses.asdict`` and ``==``
+    It also counts its answer readbacks (``READBACK``):
+
+    ``readback_groups``— group harvests, each retry rung's included;
+    ``readback_ready`` — those whose group had already finished on the
+                         device when the harvest reached it
+                         (``backend.ready``), so that the harvest waited
+                         on nothing; a cluster backend cannot tell and
+                         counts none.
+
+    These six are not dataclass fields: ``dataclasses.asdict`` and ``==``
     cover the ladder counters alone, the record the reference's
     ``LadderTelemetry`` keeps too.
     """
 
     FILL = ("answer_rows", "answer_cap_rows", "class_rows", "class_cap_rows")
+    READBACK = ("readback_groups", "readback_ready")
 
     queries: int = 0
     dispatches: int = 0
@@ -95,12 +106,12 @@ class LadderTelemetry:
     union_lanes: int = 0
 
     def __post_init__(self) -> None:
-        for name in self.FILL:
+        for name in self.FILL + self.READBACK:
             setattr(self, name, 0)
 
     def snapshot(self) -> "LadderTelemetry":
         out = dataclasses.replace(self)
-        for name in self.FILL:
+        for name in self.FILL + self.READBACK:
             setattr(out, name, getattr(self, name))
         return out
 
@@ -494,50 +505,52 @@ class Engine:
                 g.opcodes, g.caps, g.stack_size, g.ranges)
         return self.backend.run_batch_async(g.shape, g.caps, g.ranges)
 
+    def _harvest(self, handle):
+        """The backend's harvest of one dispatched group, counted."""
+        self.telemetry.readback_groups += 1
+        self.telemetry.readback_ready += bool(self.backend.ready(handle))
+        return self.backend.harvest_batch(handle)
+
     def harvest_batch(self, handle: BatchHandle,
                       max_retries: int = MAX_RETRIES) -> list:
         """Block on a dispatched batch and drive the overflow ladder.
 
-        Overflow is tracked per lane: only the queries whose own sticky
-        flag tripped are retried (synchronously), at doubled capacities,
-        through the executable that served them (a union group retries
-        through the union executable).  ``retry_rungs`` and
+        Each group is harvested in dispatch order, waiting for that group
+        alone.  Overflow is tracked per lane: only the queries whose own
+        sticky flag tripped are retried, at doubled capacities, through
+        the executable that served them (a union group retries through the
+        union executable).  A retry is dispatched as soon as its group is
+        read back and harvested after every group dispatched before it, so
+        no group's readback waits behind a retry, which the stream runs
+        after the batches dispatched since.  ``retry_rungs`` and
         ``default_jumps`` both count per lane."""
         results = handle.results
-        for g in handle.groups:
-            if max_retries <= 0:
+        if handle.groups and max_retries <= 0:
+            raise RuntimeError("query overflow not resolved after retries")
+        t = self.telemetry
+        work = collections.deque((g, 0) for g in handle.groups)
+        while work:
+            g, attempt = work.popleft()
+            rows, overflow = self._harvest(g.handle)
+            for lane, r in enumerate(rows):
+                if r is not None:
+                    results[g.members[lane]] = r
+                    t.answer_rows += len(r)
+                    t.answer_cap_rows += g.caps.pair_cap
+            if not overflow.any():
+                continue
+            # only the lanes whose own flag tripped climb a rung
+            t.retry_rungs += int(overflow.sum())
+            if attempt >= 3:
+                t.default_jumps += int(overflow.sum())
+            if attempt + 1 >= max_retries:
                 raise RuntimeError("query overflow not resolved after retries")
-            pending = np.asarray(g.members, np.int64)
-            ranges = g.ranges
-            opcodes = g.opcodes
-            grp_caps = g.caps
-            rows, overflow = self.backend.harvest_batch(g.handle)
-            attempt = 0
-            while True:
-                for lane, r in enumerate(rows):
-                    if r is not None:
-                        results[pending[lane]] = r
-                        self.telemetry.answer_rows += len(r)
-                        self.telemetry.answer_cap_rows += grp_caps.pair_cap
-                if not overflow.any():
-                    break
-                # only the lanes whose own flag tripped climb a rung
-                self.telemetry.retry_rungs += int(overflow.sum())
-                if attempt >= 3:
-                    self.telemetry.default_jumps += int(overflow.sum())
-                grp_caps = self._escalate(grp_caps, attempt)
-                attempt += 1
-                if attempt >= max_retries:
-                    raise RuntimeError(
-                        "query overflow not resolved after retries")
-                pending = pending[overflow]
-                ranges = ranges[overflow]
-                self.telemetry.dispatches += 1
-                if opcodes is not None:
-                    opcodes = opcodes[overflow]
-                    rows, overflow = self.backend.run_union_batch(
-                        opcodes, grp_caps, g.stack_size, ranges)
-                else:
-                    rows, overflow = self.backend.run_batch(
-                        g.shape, grp_caps, ranges)
+            retry = dataclasses.replace(
+                g, caps=self._escalate(g.caps, attempt),
+                members=np.asarray(g.members, np.int64)[overflow],
+                ranges=g.ranges[overflow],
+                opcodes=None if g.opcodes is None else g.opcodes[overflow])
+            t.dispatches += 1
+            retry.handle = self._dispatch_group(retry)
+            work.append((retry, attempt + 1))
         return results

@@ -104,7 +104,12 @@ def to_numpy(rel: Relation) -> np.ndarray:
 def batch_to_numpy(rel: Relation, lanes=None) -> list[np.ndarray]:
     """Lanes of a (batch, cap) relation as host (count_j, arity) arrays —
     all of them, or just the ``lanes`` indices.  One device->host
-    transfer per column (not per lane)."""
+    transfer per column (not per lane), padding included.
+
+    Now the readback of the cluster's worker processes only, and what the
+    tests hold the engine's readback to: the backends of the engine, on
+    the CPU as on the card, copy each answered lane's valid prefix alone
+    (``core.backend.CapturedBackend.harvest_batch``)."""
     cols = [c.cpu().numpy() for c in rel.cols]
     counts = rel.count.cpu().numpy()
     if lanes is None:

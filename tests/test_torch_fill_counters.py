@@ -1,7 +1,8 @@
-"""The batch path's lane-fill counters of ``LadderTelemetry``: the pairs
-each answered lane holds against the pair cap of the rung that answered
-it, and the class-list entries each lane's lookups cover against its
-group's class caps, on a small power-law graph on the CPU."""
+"""The batch path's host counters of ``LadderTelemetry``, on a small
+power-law graph on the CPU: the pairs each answered lane holds against
+the pair cap of the rung that answered it, the class-list entries each
+lane's lookups cover against its group's class caps, and the answer
+readbacks (group harvests, and those that found their group done)."""
 
 import dataclasses
 
@@ -87,3 +88,31 @@ def test_fill_counters_stay_out_of_the_ladder_record(setup):
     assert _fill(snap) != _fill(t)
     t.reset()
     assert _fill(t) == (0, 0, 0, 0) and t == LadderTelemetry()
+
+
+@pytest.mark.parametrize("union", [False, True])
+@pytest.mark.parametrize("caps", [None, TINY], ids=["estimated", "retried"])
+def test_readback_counters_count_every_group_and_rung(setup, union, caps):
+    """``readback_groups`` counts one a group harvest and one a retry
+    rung's; on the CPU every group is done when its harvest reaches it.
+    Like the fill counters they stay out of ``asdict`` and ``==``, and
+    ``snapshot`` and ``reset`` carry and zero them."""
+    idx, qs = setup
+    eng = Engine(idx, device=CPU)
+    harvests = []
+    inner = eng.backend.harvest_batch
+    eng.backend.harvest_batch = lambda h: harvests.append(h) or inner(h)
+    eng.execute_batch(qs, caps=caps, union=union)
+    t = eng.telemetry
+    assert t.readback_groups == len(harvests) == t.dispatches > 0
+    assert (t.retry_rungs > 0) or caps is None
+    assert t.readback_ready == t.readback_groups
+    assert set(dataclasses.asdict(t)) == {"queries", "dispatches",
+                                          "retry_rungs", "default_jumps",
+                                          "union_lanes"}
+    snap = t.snapshot()
+    assert (snap.readback_groups, snap.readback_ready) == \
+        (t.readback_groups, t.readback_ready)
+    t.reset()
+    assert (t.readback_groups, t.readback_ready) == (0, 0)
+    assert t == LadderTelemetry()
